@@ -1,34 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device     — the card (nvidia-smi name and power limit, capability
                 >= 9.0, torch and CUDA versions); TF32 is switched off
                 for matmuls and cuDNN so f32 means f32.
 2. build      — nvcc builds every kernel under
-                src/repro_torch/kernels/csrc/, one process per source.
+                src/repro_torch/kernels/csrc/, one process per source,
+                all started together.
 3. group_mean — the CUDA kernel against its plain PyTorch version on the
                 card, at the main path's leaf shapes (G=9, M=3,
                 D in {98304, 128, 2560, 20}, f32), D=98304 in bf16, a
                 ragged tail (D=1000) and D=1, each with a fully dropped
                 group; f32 within 2e-5, bf16 within 2e-2; median times
                 of 20 CUDA-event-timed calls beside the memory bound.
-4. vision     — 16 peers on the vision task (the CNN), 3 iterations,
+4. flash_attention, paged_decode, decode_attention — each attention
+                kernel against its plain version on the card, at the
+                serving path's shapes in bf16 and f32 plus ragged cases
+                (flash: s=512, 24 and 1000, o and lse; paged: lengths 1,
+                full and mid-page and a row on the scratch page only;
+                dense decode: S=1000). f32 within 2e-5, bf16 within
+                2e-2: the kernels sum in another order than the plain
+                versions, and the plain decode paths round the
+                probabilities to v's dtype. Median device times of the
+                kernel, the plain version and one PyTorch library call
+                (SDPA) beside the bound, with L2 flushed before each.
+5. vision     — 16 peers on the vision task (the CNN), 3 iterations,
                 kernel on: finite loss, disagreement <= 1e-10.
-5. federation — the quickstart config (27 peers, text task, MLP head
+6. federation — the quickstart config (27 peers, text task, MLP head
                 768->128->20, kernel on) for 20 iterations on the card:
                 accuracy >= 0.30, peer disagreement <= 1e-10, the ledger
                 exactly as the reference's (2,618,231,040 bytes,
                 0.89577216 simulated seconds), 480 kernel launches; then
                 the same run with the kernel off must end within 1e-5.
-6. profile    — ten quickstart steps under ``torch.profiler``: host and
+7. profile    — ten quickstart steps under ``torch.profiler``: host and
                 device time of each layer ``Federation.step`` labels
                 (transport, local update, aggregation), the device's
                 busy share, the kernels that fill it.
-7. kernels    — one JSON object per kernel: launches on the main path,
+8. serve      — the published starcoder2-3b (30 layers, d 3072, bf16,
+                flash attention, random weights from seed 0) at full
+                width through the continuous-batching engine: 16
+                sessions, prompts drawn as --vary-prompts draws them,
+                batch 8, pages of 16, pad_len 512, 64 new tokens each.
+                Every session finishes with 64 tokens, the pool is
+                quiescent, the logits are finite, and the flash and
+                paged kernels launch 30 times per prefill and per decode
+                step. Then ten decode steps under ``torch.profiler``.
+9. serve_parity — the same widths at 2 layers in f32: the engine's
+                greedy streams (paged kernel) equal the sequential
+                baseline's (plain dense decode), and prefill logits with
+                the flash kernel agree with the plain path within 1e-4.
+10. kernels   — one JSON object per kernel: launches on its main path,
                 max error, times, bound.
 
 Then the card's nvidia-smi line and, last, ``{"ok": true, "device":
@@ -48,6 +73,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+L2_FLUSH_BYTES = 256 << 20     # written before a timed call: > 50 MB L2
 QUICKSTART_BYTES = 2_618_231_040
 QUICKSTART_SIM_S = 0.89577216
 MAIN_PATH_D = (98304, 128, 2560, 20)    # fc1.w, fc1.b, fc2.w, fc2.b
@@ -75,17 +102,23 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
+              flush=None) -> float:
     """Median device time of ``reps`` calls of ``fn``. Before each, the
     card spins for about a millisecond (``torch.cuda._sleep``) while the
     host queues the start event, the call and the end event, so the
-    interval holds the call's kernels and not the host's Python."""
+    interval holds the call's kernels and not the host's Python. With
+    ``flush`` (a tensor larger than the L2 cache) it is overwritten
+    before each call, so the call finds its inputs in device memory as
+    the model's layers do."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         start.record()
         fn()
@@ -310,6 +343,383 @@ def phase_profile(torch):
                                for k, (c, us) in top])
 
 
+# ---------------------------------------------------------------------------
+# serving: the attention kernels, the engine at full width, parity
+# ---------------------------------------------------------------------------
+
+STARCODER = dict(h=24, kvh=2, d=128)            # starcoder2-3b attention
+SERVE = dict(max_batch=8, block_size=16, pad_len=512, max_new=64,
+             sessions=16)
+SERVE_LAYERS = 30
+
+
+def attention_bound_ms(nbytes: int, flops: int, bf16: bool) -> dict:
+    """Least time for an attention call, the larger of two: its inputs
+    read once and outputs written once over HBM (``bytes_ms``); the
+    flops these inputs need over the peak rate of their type, the bf16
+    tensor cores or the f32 cores (``ops_ms``)."""
+    rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
+    return {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": flops / rate * 1e3}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _row(kind, dtype, err, tol, kernel_ms, plain_ms, library_ms, bound,
+         **shape):
+    return {"kind": kind, **shape,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "tol": tol, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bound.values()),
+            **bound}
+
+
+def _tol(torch, dtype) -> float:
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+def phase_flash(torch, flush):
+    """The flash kernel against ``flash_attention_ref`` (o and lse); SDPA
+    with ``is_causal`` and ``enable_gqa`` as the library yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    h, kvh, d = STARCODER["h"], STARCODER["kvh"], STARCODER["d"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for kind, s, dtype in [("path", SERVE["pad_len"], torch.bfloat16),
+                           ("path", SERVE["pad_len"], torch.float32),
+                           ("ragged", 24, torch.bfloat16),
+                           ("ragged", 24, torch.float32),
+                           ("ragged", 1000, torch.bfloat16),
+                           ("ragged", 1000, torch.float32)]:
+        q = torch.randn((1, s, h, d), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((1, s, kvh, d), generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn((1, s, kvh, d), generator=gen,
+                        device="cuda").to(dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        o_ref, lse_ref = flash_attention_ref(q, k, v, True)
+        torch.cuda.synchronize()
+        tol = _tol(torch, dtype)
+        err = float((o.float() - o_ref.float()).abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        check(o.dtype == dtype and o.shape == q.shape
+              and lse.shape == (1, h, s), f"flash s={s}: bad outputs")
+        check(err <= tol and lse_err <= tol,
+              f"flash s={s} {dtype}: o err {err}, lse err {lse_err} > {tol}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = s * (s + 1) // 2                   # causal (i, j), j <= i
+        bound = attention_bound_ms(_nbytes(q, k, v, o, lse),
+                                   4 * h * d * pairs,
+                                   dtype == torch.bfloat16)
+        row = _row(kind, dtype, err, tol,
+                   device_ms(torch, lambda: fa.flash_attention_fwd(
+                       q, k, v, True), flush=flush),
+                   device_ms(torch, lambda: flash_attention_ref(
+                       q, k, v, True), flush=flush),
+                   device_ms(torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                       flush=flush),
+                   bound, b=1, s=s, h=h, kvh=kvh, d=d)
+        row["lse_max_abs_err"] = lse_err
+        rows.append(row)
+        emit("flash_attention", **row)
+    return rows
+
+
+def _decode_bytes_flops(q, cache_row_bytes, lengths_host, h, d):
+    """Bytes (q read, out written, the K and V rows of every filled
+    position read once) and flops (4 per filled position, head and head
+    dim) of one decode attention call."""
+    filled = int(sum(lengths_host))
+    return (2 * q.numel() * q.element_size() + filled * cache_row_bytes,
+            4 * h * d * filled)
+
+
+def phase_paged(torch, flush):
+    """The paged kernel against ``gather_dense_decode`` at the serving
+    path's decode shapes (b=8, pages of 16, 36 table columns, 289 pages):
+    lengths 1, full, mid-page and others, and one row whose table is all
+    scratch page 0 (length 1), as an inactive engine row."""
+    from repro_torch.kernels import paged_attention as pa
+
+    h, kvh, d = STARCODER["h"], STARCODER["kvh"], STARCODER["d"]
+    b, bs = SERVE["max_batch"], SERVE["block_size"]
+    nblk = -(-(SERVE["pad_len"] + SERVE["max_new"]) // bs)          # 36
+    nb = 1 + nblk * b                                                 # 289
+    lengths_host = [1, nblk * bs, 13 * bs + 7, bs, 300, 450, 17, 1]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
+    tables = perm[:b * nblk].reshape(b, nblk).to(torch.int32)
+    tables[-1] = 0                                 # the scratch-only row
+    lengths = torch.tensor(lengths_host, dtype=torch.int32, device="cuda")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
+        kp = torch.randn((nb, bs, kvh, d), generator=gen,
+                         device="cuda").to(dtype)
+        vp = torch.randn((nb, bs, kvh, d), generator=gen,
+                         device="cuda").to(dtype)
+        out = pa.paged_decode_attention_fwd(q, kp, vp, tables, lengths)
+        want = pa.gather_dense_decode(q, kp, vp, tables, lengths)
+        torch.cuda.synchronize()
+        tol = _tol(torch, dtype)
+        err = float((out.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), "paged: non-finite output")
+        check(err <= tol, f"paged {dtype}: max abs err {err} > {tol}")
+        nbytes, flops = _decode_bytes_flops(
+            q, 2 * kvh * d * q.element_size(), lengths_host, h, d)
+        nbytes += _nbytes(tables, lengths)
+        bound = attention_bound_ms(nbytes, flops, dtype == torch.bfloat16)
+        row = _row("path", dtype, err, tol,
+                   device_ms(torch, lambda: pa.paged_decode_attention_fwd(
+                       q, kp, vp, tables, lengths), flush=flush),
+                   device_ms(torch, lambda: pa.gather_dense_decode(
+                       q, kp, vp, tables, lengths), flush=flush),
+                   None, bound, b=b, h=h, kvh=kvh, d=d, bs=bs, nblk=nblk,
+                   num_blocks=nb, lengths=lengths_host)
+        rows.append(row)
+        emit("paged_decode", **row)
+    return rows
+
+
+def phase_decode(torch, flush):
+    """The dense decode kernel against ``decode_attention_ref`` on a
+    cache of S=1000 (not a multiple of the tile); SDPA with a boolean
+    length mask as the library yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    h, kvh, d = STARCODER["h"], STARCODER["kvh"], STARCODER["d"]
+    b, s = SERVE["max_batch"], 1000
+    lengths_host = [1, s, 999, 500, 33, 640, 17, 250]
+    lengths = torch.tensor(lengths_host, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]          # [b, 1, 1, S]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
+        kc = torch.randn((b, s, kvh, d), generator=gen,
+                         device="cuda").to(dtype)
+        vc = torch.randn((b, s, kvh, d), generator=gen,
+                         device="cuda").to(dtype)
+        out = da.decode_attention_fwd(q, kc, vc, lengths)
+        want = decode_attention_ref(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        tol = _tol(torch, dtype)
+        err = float((out.float() - want.float()).abs().max())
+        check(err <= tol, f"decode {dtype}: max abs err {err} > {tol}")
+        nbytes, flops = _decode_bytes_flops(
+            q, 2 * kvh * d * q.element_size(), lengths_host, h, d)
+        nbytes += _nbytes(lengths)
+        bound = attention_bound_ms(nbytes, flops, dtype == torch.bfloat16)
+        q4, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+        row = _row("S1000", dtype, err, tol,
+                   device_ms(torch, lambda: da.decode_attention_fwd(
+                       q, kc, vc, lengths), flush=flush),
+                   device_ms(torch, lambda: decode_attention_ref(
+                       q, kc, vc, lengths), flush=flush),
+                   device_ms(torch, lambda: F.scaled_dot_product_attention(
+                       q4, kt, vt, attn_mask=mask, enable_gqa=True),
+                       flush=flush),
+                   bound, b=b, S=s, h=h, kvh=kvh, d=d, lengths=lengths_host)
+        rows.append(row)
+        emit("decode_attention", **row)
+    return rows
+
+
+def _serve_prompts(vocab: int, n: int, max_len: int):
+    """Prompt lengths and tokens as ``launch/serve.py --vary-prompts``
+    draws them from ``default_rng(0)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(1, max_len + 1, n)
+    return [rng.integers(0, vocab, k).tolist() for k in plens]
+
+
+def _serve_config(ServeConfig, max_new: int = SERVE["max_new"]):
+    """The engine geometry, with ``launch/serve.py``'s pool size: a full
+    batch's worst case plus the scratch page."""
+    bs, pad = SERVE["block_size"], SERVE["pad_len"]
+    need = -(-(pad + max_new) // bs)
+    return ServeConfig(max_batch=SERVE["max_batch"], block_size=bs,
+                       num_blocks=1 + need * SERVE["max_batch"],
+                       pad_len=pad, max_new=max_new)
+
+
+def _prompt_tokens(torch, prompt):
+    import numpy as np
+
+    toks = np.zeros((1, SERVE["pad_len"]), np.int32)
+    toks[0, :len(prompt)] = prompt
+    return torch.as_tensor(toks).cuda()
+
+
+def phase_serve(torch, smi):
+    """starcoder2-3b at full width through the port's engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serve import DecodeServer, ServeConfig
+
+    cfg = get_config("starcoder2-3b")
+    check(cfg.num_layers == SERVE_LAYERS and cfg.dtype == "bfloat16"
+          and cfg.attn_impl == "flash", f"unexpected config {cfg}")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)             # the default device: cuda
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scfg = _serve_config(ServeConfig)
+    check(scfg.num_blocks == 289, f"num_blocks {scfg.num_blocks} != 289")
+    prompts = _serve_prompts(cfg.vocab_size, SERVE["sessions"],
+                             SERVE["pad_len"])
+
+    warm = DecodeServer(model, params, _serve_config(ServeConfig, 2))
+    warm.enqueue(prompts[0])
+    warm.run()
+    del warm
+
+    srv = DecodeServer(model, params, scfg)
+    for p in prompts:
+        srv.enqueue(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    srv.assert_quiescent()
+    st = srv.stats()
+    peak = torch.cuda.max_memory_allocated()
+
+    with torch.inference_mode():
+        logits, _, _ = model.forward(params, _prompt_tokens(torch,
+                                                            prompts[0]))
+        finite = bool(torch.isfinite(logits).all())
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "init_s": init_s, "sessions": len(srv.finished),
+           "prefills": st["prefills"], "decode_steps": st["decode_steps"],
+           "tokens": st["tokens"], "elapsed_s": elapsed,
+           "tokens_per_s": st["tokens"] / elapsed,
+           "ttft_p50_ms": st["p50_ttft_s"] * 1e3,
+           "per_token_p50_ms": st["p50_tok_s"] * 1e3,
+           "per_token_p99_ms": st["p99_tok_s"] * 1e3,
+           "peak_memory_bytes": peak, "launches": launches,
+           "logits_finite": finite, "card": smi}
+    emit("serve", **out)
+    check(len(srv.finished) == SERVE["sessions"]
+          and all(len(s.generated) == SERVE["max_new"]
+                  for s in srv.finished),
+          "serve: a session did not finish with 64 tokens")
+    check(finite, "serve: prefill logits are not finite")
+    check(launches["flash_attention"] == st["prefills"] * SERVE_LAYERS,
+          f"flash launched {launches['flash_attention']} times for "
+          f"{st['prefills']} prefills of {SERVE_LAYERS} layers")
+    check(launches["paged_decode_attention"]
+          == st["decode_steps"] * SERVE_LAYERS,
+          f"paged kernel launched {launches['paged_decode_attention']} "
+          f"times for {st['decode_steps']} decode steps")
+
+    # ten decode steps of a full batch under the profiler
+    prof_srv = DecodeServer(model, params, scfg)
+    for p in prompts[:SERVE["max_batch"]]:
+        prof_srv.enqueue(p)
+    prof_srv.step()                       # admits all eight, one decode
+    torch.cuda.synchronize()
+    steps = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            prof_srv.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name[:60], [0, 0.0])
+            k[0] += 1
+            k[1] += e.self_device_time_total
+    busy_us = sum(us for _, us in kernels.values())
+    check(busy_us > 0, "serve profile: no device time recorded")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    emit("serve_profile", steps=steps, batch=len(prof_srv.running),
+         wall_ms_per_step=wall_us / steps / 1e3,
+         device_busy_ms_per_step=busy_us / steps / 1e3,
+         device_busy_share=busy_us / wall_us,
+         kernel_launches_per_step=sum(c for c, _ in kernels.values())
+         / steps,
+         top_kernels_per_step=[{"name": k, "launches": c / steps,
+                                "device_us": us / steps}
+                               for k, (c, us) in top])
+    return launches
+
+
+def phase_serve_parity(torch):
+    """starcoder2-3b's widths at 2 layers in f32: the engine (paged
+    kernel) against the sequential baseline (plain dense decode), and
+    the flash kernel's prefill logits against the plain path's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import DecodeServer, ServeConfig, run_sequential
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), num_layers=2,
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(seed=0)
+    prompts = _serve_prompts(cfg.vocab_size, 12, SERVE["pad_len"])
+    srv = DecodeServer(model, params, _serve_config(ServeConfig))
+    for p in prompts:
+        srv.enqueue(p)
+    srv.run()
+    srv.assert_quiescent()
+    seq = run_sequential(model, params, prompts, max_new=SERVE["max_new"],
+                         pad_len=SERVE["pad_len"])
+    eng = {s.sid: s.generated for s in srv.finished}
+    same = [eng[s.sid] == s.generated for s in seq]
+
+    with torch.inference_mode():
+        toks = _prompt_tokens(torch, prompts[0])
+        flash, _, _ = model.forward(params, toks)
+        plain, _, _ = Model(dataclasses.replace(cfg, attn_impl="xla")) \
+            .forward(params, toks)
+        logit_err = float((flash - plain).abs().max())
+    emit("serve_parity", layers=2, dtype="float32", sessions=len(prompts),
+         streams_equal=sum(same), engine_decode_steps=srv.decode_steps,
+         prefill_logits_flash_vs_xla_max_abs_err=logit_err)
+    check(all(same), f"serve_parity: {len(same) - sum(same)} of "
+                     f"{len(same)} engine streams differ from sequential")
+    check(logit_err <= 1e-4, f"serve_parity: flash vs xla prefill logits "
+                             f"differ by {logit_err} > 1e-4")
+
+
+def kernel_entry(name, source, replaces, launches, row):
+    """One entry of the kernels line from a phase's path row."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                         else "operations"),
+            "library_ms": row["library_ms"]}
+
+
 def main() -> None:
     import torch
 
@@ -341,12 +751,20 @@ def main() -> None:
                 for k, v in report.items()})
 
     rows = phase_group_mean(torch, gm, ref)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flash_rows = phase_flash(torch, flush)
+    paged_rows = phase_paged(torch, flush)
+    decode_rows = phase_decode(torch, flush)
+    del flush
     phase_vision(torch)
     launches = phase_federation(torch, smi)
     phase_profile(torch)
+    serve_launches = phase_serve(torch, smi)
+    phase_serve_parity(torch)
 
-    # one call at each main-path leaf shape (G=9, M=3, the four D, f32),
-    # times and bounds summed over the four
+    # group_mean: one call at each main-path leaf shape (G=9, M=3, the
+    # four D, f32), times and bounds summed over the four; the attention
+    # kernels: their first (bf16, serving-path) row
     path = [r for r in rows if r["kind"] == "path"]
     print(json.dumps({"kernels": [{
         "name": "group_mean", "route": "cuda",
@@ -359,7 +777,21 @@ def main() -> None:
         "bound_ms": sum(r["bound_ms"] for r in path),
         "bound_by": ("bytes" if sum(r["bytes_ms"] for r in path)
                      >= sum(r["ops_ms"] for r in path) else "operations"),
-        "library_ms": None}]}), flush=True)
+        "library_ms": None},
+        kernel_entry("flash_attention",
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:76",
+                     serve_launches["flash_attention"], flash_rows[0]),
+        kernel_entry("paged_decode_attention",
+                     "src/repro_torch/kernels/csrc/decode_attention.cu",
+                     "src/repro/kernels/paged_attention.py:76",
+                     serve_launches["paged_decode_attention"],
+                     paged_rows[0]),
+        kernel_entry("decode_attention",
+                     "src/repro_torch/kernels/csrc/decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:67",
+                     serve_launches["decode_attention"], decode_rows[0]),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

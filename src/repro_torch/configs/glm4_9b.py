@@ -1,0 +1,18 @@
+"""glm4-9b [dense] — RoPE, GQA kv=2 [hf:THUDM/glm-4-9b]."""
+from repro_torch.configs.base import ModelConfig, reduced
+
+CONFIG = ModelConfig(
+    name="glm4-9b",
+    family="dense",
+    num_layers=40,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=2,
+    head_dim=128,
+    d_ff=13696,
+    vocab_size=151552,
+)
+
+
+def smoke_config() -> ModelConfig:
+    return reduced(CONFIG, num_kv_heads=1)

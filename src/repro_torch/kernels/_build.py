@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes plain C functions and becomes its own
 shared library, ``_build/lib<name>-<hash>.so`` beside this file (the
-directory is git-ignored). The hash covers the source and the flags, so
-an edited source never loads a stale library. Libraries are built at
+directory is git-ignored). The hash covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+never loads a stale library. Libraries are built at
 first use, never at import: the CPU tests import every module on hosts
 without ``nvcc``. :func:`build_all` starts one ``nvcc`` per source, all
 at once, and waits for them together.
@@ -49,7 +50,8 @@ def sources() -> List[str]:
 
 def _library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -10,12 +10,54 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import group_mean as _group_mean
+from repro_torch.kernels import paged_attention as _paged
+
+_MODULES = {"group_mean": _group_mean, "flash_attention": _flash,
+            "decode_attention": _decode, "paged_decode_attention": _paged}
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q [b,s,h,d]; k,v [b,skv,kvh,d] -> [b,s,h,d]."""
+    _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "rank-4 inputs")
+    _check(k.shape == v.shape, "k/v shape mismatch")
+    _check(q.shape[3] == k.shape[3], "head_dim mismatch")
+    _check(q.shape[2] % k.shape[2] == 0, "GQA heads must divide")
+    return _flash.flash_attention_fwd(q, k, v, causal)[0]
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q [b,h,d]; caches [b,S,kvh,d]; lengths [b] -> [b,h,d]."""
+    _check(q.dim() == 3 and k_cache.dim() == 4, "bad ranks")
+    _check(q.shape[2] == k_cache.shape[3], "head_dim mismatch")
+    return _decode.decode_attention_fwd(q, k_cache, v_cache,
+                                        lengths.to(torch.int32))
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """q [b,h,d]; pages [nb,bs,kvh,d]; block_tables [b,nblk]; lengths [b]
+    -> [b,h,d]. CUDA: the split-K kernel reading pages through the
+    block table; CPU: the gather + dense einsum it is held against."""
+    _check(q.dim() == 3 and k_pages.dim() == 4, "bad ranks")
+    _check(q.shape[2] == k_pages.shape[3], "head_dim mismatch")
+    _check(k_pages.shape == v_pages.shape, "k/v pages mismatch")
+    _check(block_tables.dim() == 2 and block_tables.shape[0] == q.shape[0],
+           "block_tables must be [b, nblk]")
+    return _paged.paged_decode_attention_fwd(
+        q, k_pages, v_pages, block_tables.to(torch.int32),
+        lengths.to(torch.int32))
 
 
 def group_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -27,8 +69,9 @@ def group_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since :func:`reset_launch_counts`."""
-    return {"group_mean": _group_mean.launches}
+    return {name: mod.launches for name, mod in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    _group_mean.launches = 0
+    for mod in _MODULES.values():
+        mod.launches = 0

@@ -7,6 +7,9 @@ the matching functions in the JAX package's ``repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
 
 
@@ -22,3 +25,71 @@ def group_mean_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mean = num / den.clamp(min=1.0)
     out = torch.where(den > 0, mean, x.float())
     return out.expand(x.shape).to(x.dtype)
+
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [b,s,h,d]; k,v [b,skv,kvh,d] -> (o [b,s,h,d], lse [b,h,s]).
+
+    GQA (query head i reads kv head i // (h/kvh)); causal masks kv
+    position j > query position i. o is in q's dtype, lse (the row
+    log-sum-exp of the scaled scores, what the flash recurrence keeps
+    for its backward) in f32. The reference's oracle returns o only.
+    """
+    b, s, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, d)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) \
+        / math.sqrt(d)
+    if causal:
+        pos_q = torch.arange(s, device=q.device)
+        pos_k = torch.arange(skv, device=q.device)
+        sc = torch.where(pos_q[:, None] >= pos_k[None, :], sc, NEG_INF)
+    lse = torch.logsumexp(sc, dim=-1)                     # [b,kvh,g,s]
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(b, s, h, d).to(q.dtype), lse.reshape(b, h, s)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """q [b,h,d]; caches [b,S,kvh,d]; lengths [b] -> [b,h,d].
+
+    Attends to positions < lengths[b] (the filled prefix of the cache).
+    """
+    b, h, d = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, d)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) \
+        / math.sqrt(d)
+    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """q [b,h,d]; pages [nb,bs,kvh,d]; block_tables [b,nblk]; lengths [b].
+
+    Gathers each session's pages into a dense [b, nblk*bs, kvh, d] cache
+    (block-table order == position order) and defers to the dense decode
+    oracle — the semantic ground truth for the paged kernel.
+    """
+    b = q.shape[0]
+    bs, kvh, d = k_pages.shape[1], k_pages.shape[2], k_pages.shape[3]
+    s = block_tables.shape[1] * bs
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, s, kvh, d)
+    v = v_pages[bt].reshape(b, s, kvh, d)
+    return decode_attention_ref(q, k, v, lengths)

@@ -1,0 +1,348 @@
+"""The port's attention kernels' plain versions against the JAX package.
+
+On the CPU each wrapper of the port runs its kernel's plain version
+(flash: ``flash_attention_ref`` with lse; dense decode:
+``decode_attention_ref``; paged: ``gather_dense_decode``). They are held
+against the reference's oracles (``repro.kernels.ref``), its XLA flash
+forward (``attention_flash._flash_fwd_impl``, for lse) and its Pallas
+kernels in interpret mode, on the same numpy-made inputs, at shapes from
+``tests/test_kernels.py`` plus ragged lengths (the Pallas kernels in f32
+and on a few shapes each: they are the same code in either dtype, and
+the interpreter is slow). The CUDA kernels themselves are held against the same plain versions on the card by
+``chip_smoke.py``.
+
+Tolerances: f32 1e-5 (both sides sum in f32, in other orders); bf16
+2e-2, as ``tests/test_kernels.py`` (inputs round to bf16 identically on
+both sides; the outputs round once more, and the Pallas kernel keeps
+its sums in bf16-fed f32 tiles).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_fwd
+from repro.kernels.flash_attention import flash_attention_fwd
+from repro.kernels.paged_attention import (gather_dense_decode as
+                                           j_gather_dense_decode)
+from repro.kernels.paged_attention import paged_decode_attention_fwd
+from repro.models.attention_flash import _flash_fwd_impl
+
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.models import attention_flash
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _pair(rng, shape, dtype):
+    """The same normal draws as a torch and a JAX array of ``dtype``."""
+    x = rng.normal(size=shape).astype(np.float32)
+    return (torch.from_numpy(x).to(getattr(torch, dtype)),
+            jnp.asarray(x).astype(getattr(jnp, dtype)))
+
+
+def _close(got, want, dtype, **kw):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype], **kw)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [
+    (2, 128, 8, 2, 32),   # GQA 4:1
+    (1, 256, 4, 4, 64),   # MHA
+    (2, 64, 8, 1, 16),    # MQA
+    (1, 96, 6, 2, 32),    # non-power seq
+    (1, 24, 12, 1, 128),  # the CLI's default prompt length, path head dim
+    (1, 100, 4, 2, 32),   # ragged: the TPU kernel halves bq to 4
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kvh,d", FLASH_SHAPES)
+def test_flash_matches_reference(b, s, h, kvh, d, dtype):
+    rng = np.random.default_rng(s + h)
+    (q, qj), (k, kj), (v, vj) = (_pair(rng, shp, dtype) for shp in
+                                 [(b, s, h, d), (b, s, kvh, d),
+                                  (b, s, kvh, d)])
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert out.dtype == q.dtype and tuple(out.shape) == (b, s, h, d)
+    _close(out, jref.flash_attention_ref(qj, kj, vj, causal=True), dtype)
+    if dtype == "float32" and s in (128, 64, 100):
+        _close(out, flash_attention_fwd(qj, kj, vj, True, interpret=True),
+               dtype)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d", [FLASH_SHAPES[0], FLASH_SHAPES[3],
+                                         FLASH_SHAPES[5]])
+def test_flash_lse_matches_xla_forward(b, s, h, kvh, d):
+    """o and lse [b, kvh, g, s] against the reference's blockwise XLA
+    forward (its q and kv chunks need not divide s: it shrinks them)."""
+    rng = np.random.default_rng(7)
+    (q, qj), (k, kj), (v, vj) = (_pair(rng, shp, "float32") for shp in
+                                 [(b, s, h, d), (b, s, kvh, d),
+                                  (b, s, kvh, d)])
+    o_want, lse_want = _flash_fwd_impl(qj, kj, vj, True, 16, 32)
+    o, lse = attention_flash.flash_fwd(q, k, v, True)
+    assert lse.dtype == torch.float32
+    assert tuple(lse.shape) == (b, kvh, h // kvh, s)
+    _close(o, o_want, "float32")
+    _close(lse, lse_want, "float32")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_cross_lengths_and_noncausal(causal):
+    rng = np.random.default_rng(3)
+    (q, qj), (k, kj), (v, vj) = (_pair(rng, shp, "float32") for shp in
+                                 [(1, 64, 4, 32), (1, 128, 4, 32),
+                                  (1, 128, 4, 32)])
+    out = ops.flash_attention(q, k, v, causal=causal)
+    _close(out, jref.flash_attention_ref(qj, kj, vj, causal=causal),
+           "float32")
+
+
+def test_flash_autograd_backward_waits_for_lm_slice():
+    q = torch.randn(1, 8, 2, 16, requires_grad=True)
+    k = torch.randn(1, 8, 1, 16)
+    v = torch.randn(1, 8, 1, 16)
+    out = attention_flash.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        out.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# dense decode attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kvh,d", [
+    (2, 256, 8, 2, 32), (1, 512, 4, 4, 64), (3, 128, 6, 1, 16),
+    (2, 98, 4, 2, 16), (2, 1030, 24, 2, 32),
+])
+def test_decode_matches_reference(b, s, h, kvh, d, dtype):
+    rng = np.random.default_rng(s + b)
+    (q, qj), (kc, kj), (vc, vj) = (_pair(rng, shp, dtype) for shp in
+                                   [(b, h, d), (b, s, kvh, d),
+                                    (b, s, kvh, d)])
+    lens = np.concatenate([[1, s], rng.integers(1, s + 1, b)])[:b]
+    lens = lens.astype(np.int32)
+    out = ops.decode_attention(q, kc, vc, torch.from_numpy(lens))
+    assert out.dtype == q.dtype and tuple(out.shape) == (b, h, d)
+    _close(out, jref.decode_attention_ref(qj, kj, vj, jnp.asarray(lens)),
+           dtype)
+    if dtype == "float32" and s in (98, 1030):
+        _close(out, decode_attention_fwd(qj, kj, vj, jnp.asarray(lens),
+                                         interpret=True), dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(rng, b, nblk, bs, h, kvh, d, dtype):
+    nb = 1 + b * nblk
+    (q, qj), (kp, kpj), (vp, vpj) = (_pair(rng, shp, dtype) for shp in
+                                     [(b, h, d), (nb, bs, kvh, d),
+                                      (nb, bs, kvh, d)])
+    bt = rng.permutation(np.arange(1, nb)).reshape(b, nblk).astype(np.int32)
+    # lengths 1, full and mid-page; the last row (if any) reads only the
+    # scratch page 0, as an inactive engine row does
+    lens = np.array([1, nblk * bs, bs + bs // 2 + 1][:b], np.int32)
+    if b > 3:
+        lens = np.concatenate([lens, rng.integers(1, nblk * bs, b - 3)])
+    if b > 1:
+        bt[-1] = 0
+        lens[-1] = 1
+    lens = lens.astype(np.int32)
+    return ((q, kp, vp, torch.from_numpy(bt), torch.from_numpy(lens)),
+            (qj, kpj, vpj, jnp.asarray(bt), jnp.asarray(lens)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nblk,bs,h,kvh,d", [
+    (2, 4, 16, 8, 2, 32), (1, 8, 8, 4, 4, 16), (3, 2, 32, 6, 1, 16),
+    (5, 3, 16, 24, 2, 32),
+])
+def test_paged_matches_reference(b, nblk, bs, h, kvh, d, dtype):
+    rng = np.random.default_rng(b * nblk + bs)
+    t_in, j_in = _paged_inputs(rng, b, nblk, bs, h, kvh, d, dtype)
+    out = ops.paged_decode_attention(*t_in)
+    assert out.dtype == t_in[0].dtype and tuple(out.shape) == (b, h, d)
+    assert bool(torch.isfinite(out).all())
+    _close(out, jref.paged_decode_attention_ref(*j_in), dtype)
+    _close(out, j_gather_dense_decode(*j_in), dtype)
+    if dtype == "float32" and b in (2, 5):
+        _close(out, paged_decode_attention_fwd(*j_in, interpret=True), dtype)
+
+
+def test_port_oracles_match_reference_oracles():
+    rng = np.random.default_rng(11)
+    t_in, j_in = _paged_inputs(rng, 3, 4, 8, 8, 2, 16, "float32")
+    _close(ref.paged_decode_attention_ref(*t_in),
+           jref.paged_decode_attention_ref(*j_in), "float32")
+    # gather_dense_decode is the paged kernel's plain version
+    torch.testing.assert_close(pa.gather_dense_decode(*t_in),
+                               ref.paged_decode_attention_ref(*t_in),
+                               rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# dispatch, launch counts and layout checks
+# ---------------------------------------------------------------------------
+
+def test_cpu_paths_are_plain_and_count_no_launch():
+    rng = np.random.default_rng(0)
+    t_in, _ = _paged_inputs(rng, 2, 2, 4, 4, 2, 8, "float32")
+    q4 = torch.randn(1, 6, 4, 8)
+    kv4 = torch.randn(1, 6, 2, 8)
+    ops.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q4, kv4, kv4)
+    o_ref, lse_ref = ref.flash_attention_ref(q4, kv4, kv4)
+    torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=0)
+    torch.testing.assert_close(pa.paged_decode_attention_fwd(*t_in),
+                               pa.gather_dense_decode(*t_in), rtol=0, atol=0)
+    kc = torch.randn(2, 5, 2, 8)
+    lens = torch.tensor([1, 5], dtype=torch.int32)
+    torch.testing.assert_close(
+        da.decode_attention_fwd(t_in[0], kc, kc, lens),
+        ref.decode_attention_ref(t_in[0], kc, kc, lens), rtol=0, atol=0)
+    assert ops.launch_counts() == {"group_mean": 0, "flash_attention": 0,
+                                   "decode_attention": 0,
+                                   "paged_decode_attention": 0}
+
+
+def test_non_cpu_tensors_never_fall_back():
+    """A tensor that is not on the CPU goes to a kernel or raises; meta
+    tensors (no data, no CUDA) must raise, not take the plain path."""
+    meta = dict(device="meta")
+    q4, kv4 = torch.empty(1, 8, 4, 16, **meta), torch.empty(1, 8, 2, 16,
+                                                            **meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_fwd(q4, kv4, kv4)
+    q3 = torch.empty(2, 4, 16, **meta)
+    lens = torch.empty(2, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        da.decode_attention_fwd(q3, kv4.expand(2, 8, 2, 16), kv4.expand(
+            2, 8, 2, 16), lens)
+    pages = torch.empty(5, 4, 2, 16, **meta)
+    bt = torch.empty(2, 2, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pa.paged_decode_attention_fwd(q3, pages, pages, bt, lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layout_checks_accept_what_the_kernels_take(dtype):
+    fa.check_layout(torch.zeros(1, 24, 24, 128, dtype=dtype),
+                    torch.zeros(1, 24, 2, 128, dtype=dtype),
+                    torch.zeros(1, 24, 2, 128, dtype=dtype))
+    i32 = dict(dtype=torch.int32)
+    da.check_layout(torch.zeros(8, 24, 128, dtype=dtype),
+                    torch.zeros(8, 1000, 2, 128, dtype=dtype),
+                    torch.zeros(8, 1000, 2, 128, dtype=dtype),
+                    torch.ones(8, **i32))
+    pa.check_layout(torch.zeros(8, 24, 128, dtype=dtype),
+                    torch.zeros(289, 16, 2, 128, dtype=dtype),
+                    torch.zeros(289, 16, 2, 128, dtype=dtype),
+                    torch.zeros(8, 36, **i32), torch.ones(8, **i32))
+
+
+def _flash_bad(case):
+    q, kv = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16)
+    return {
+        "f64": (q.double(), kv.double(), kv.double()),
+        "mixed": (q, kv.bfloat16(), kv),
+        "rank": (q[0], kv, kv),
+        "kv_shape": (q, kv, torch.zeros(1, 9, 2, 16)),
+        "groups": (torch.zeros(1, 8, 3, 16), kv, kv),
+        "head_dim": (torch.zeros(1, 8, 4, 136), torch.zeros(1, 8, 2, 136),
+                     torch.zeros(1, 8, 2, 136)),
+        "head_dim_odd": (torch.zeros(1, 8, 4, 6), torch.zeros(1, 8, 2, 6),
+                         torch.zeros(1, 8, 2, 6)),
+        "strided": (torch.zeros(1, 4, 8, 16).transpose(1, 2), kv, kv),
+        "empty_kv": (q, torch.zeros(1, 0, 2, 16), torch.zeros(1, 0, 2, 16)),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["f64", "mixed", "rank", "kv_shape",
+                                  "groups", "head_dim", "head_dim_odd",
+                                  "strided", "empty_kv"])
+def test_flash_layout_rejects_what_the_kernel_cannot_take(case):
+    with pytest.raises((ValueError, TypeError)):
+        fa.check_layout(*_flash_bad(case))
+
+
+def _paged_bad(case):
+    q = torch.zeros(2, 8, 16)
+    pages = torch.zeros(5, 4, 2, 16)
+    bt = torch.zeros(2, 3, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    return {
+        "lens_i64": (q, pages, pages, bt, lens.long()),
+        "table_i64": (q, pages, pages, bt.long(), lens),
+        "table_rows": (q, pages, pages, bt[:1], lens),
+        "lens_shape": (q, pages, pages, bt, lens[:1]),
+        "big_group": (torch.zeros(2, 34, 16), pages, pages, bt, lens),
+        "table_strided": (q, pages, pages,
+                          torch.zeros(3, 2, dtype=torch.int32).t(), lens),
+        "pages_dtype": (q, pages.bfloat16(), pages.bfloat16(), bt, lens),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["lens_i64", "table_i64", "table_rows",
+                                  "lens_shape", "big_group",
+                                  "table_strided", "pages_dtype"])
+def test_paged_layout_rejects_what_the_kernel_cannot_take(case):
+    with pytest.raises((ValueError, TypeError)):
+        pa.check_layout(*_paged_bad(case))
+
+
+def test_dense_decode_layout_rejects_empty_and_mismatched_caches():
+    q, lens = torch.zeros(2, 8, 16), torch.ones(2, dtype=torch.int32)
+    for kc in (torch.zeros(2, 0, 2, 16), torch.zeros(3, 8, 2, 16)):
+        with pytest.raises(ValueError):
+            da.check_layout(q, kc, kc, lens)
+
+
+@pytest.mark.parametrize("positions,pairs,sms", [
+    (576, 16, 132), (1000, 16, 132), (24, 4, 132), (32768, 1, 132),
+    (1, 1, 132), (100, 1000, 132), (33, 2, 8)])
+def test_split_plan_covers_every_position(positions, pairs, sms):
+    chunk, nsplit = da.split_plan(positions, pairs, sms)
+    assert chunk % da.TILE == 0 and chunk > 0
+    assert chunk * nsplit >= positions > chunk * (nsplit - 1)
+    assert pairs * nsplit <= max(2 * sms, pairs)
+
+
+def test_ops_keep_the_reference_shape_checks():
+    with pytest.raises(ValueError, match="rank-4"):
+        ops.flash_attention(torch.zeros(2, 3, 4), torch.zeros(1, 2, 3, 4),
+                            torch.zeros(1, 2, 3, 4))
+    with pytest.raises(ValueError, match="GQA"):
+        ops.flash_attention(torch.zeros(1, 2, 3, 4), torch.zeros(1, 2, 2, 4),
+                            torch.zeros(1, 2, 2, 4))
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.decode_attention(torch.zeros(2, 4, 8), torch.zeros(2, 5, 2, 4),
+                             torch.zeros(2, 5, 2, 4), torch.ones(2))
+    with pytest.raises(ValueError, match="block_tables"):
+        ops.paged_decode_attention(torch.zeros(2, 4, 8),
+                                   torch.zeros(3, 4, 2, 8),
+                                   torch.zeros(3, 4, 2, 8),
+                                   torch.zeros(3, 1), torch.ones(2))
+
+
+def test_attention_sources_build_with_their_shared_header():
+    assert {"flash_attention", "decode_attention"} <= set(_build.sources())
+    header = _build.CSRC / "online_softmax.cuh"
+    assert header.exists()
+    for name in ("flash_attention", "decode_attention"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "online_softmax.cuh"' in src
+        assert "sm_90a" in src or "Hopper" in src
