@@ -53,8 +53,30 @@ Phases, each printing JSON lines:
                 greedy streams (paged kernel) equal the sequential
                 baseline's (plain dense decode), and prefill logits with
                 the flash kernel agree with the plain path within 1e-4.
-10. kernels   — one JSON object per kernel: launches on its main path,
+10. serve_recurrent — the published zamba2-2.7b (54 layers: 45 Mamba2
+                and 9 applications of one shared attention block, d 2560)
+                and xlstm-350m (24 layers: 21 mLSTM and 3 sLSTM, d 1024)
+                at full width, bf16, random weights from seed 0, through
+                run_sequential (their serving path): 4 sessions, prompts
+                of exactly 512 tokens, 32 new tokens each. Every session
+                ends with its tokens, the logits are finite, and each
+                prefill launches exactly 45 SSD-scan + 9 flash kernels
+                (zamba2) or 21 SSD-scan kernels (xlstm).
+11. recurrent_parity — both families' widths at reduced depth in f32:
+                kernel-path prefill logits within 1e-4 of the plain
+                path's, and equal greedy streams (a parting at a near
+                tie is printed with its top-2 logits).
+12. kernels   — one JSON object per kernel: launches on its main path,
                 max error, times, bound.
+
+Phase 4 also runs the flash kernel at zamba2's shared-attention shape
+(s=512, h=kvh=32, d=80, bf16), and an ``ssd_scan`` phase holds the
+SSD-scan kernel against its plain sequential version at both families'
+prefill shapes (zamba2: 80 heads, dk=dv=64, B and C broadcast with a
+head stride of 0, Mamba's decay rates; xlstm: 4 heads, dk 512, dv 513),
+S=200 and S=1 with a nonzero h0, in f32 and bf16 (1e-4 and 2e-2
+relative to the largest |y| and |h|), with median times beside the
+bound.
 
 Then the card's nvidia-smi line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero before the last line; so does a
@@ -348,6 +370,7 @@ def phase_profile(torch):
 # ---------------------------------------------------------------------------
 
 STARCODER = dict(h=24, kvh=2, d=128)            # starcoder2-3b attention
+ZAMBA2_ATTN = dict(h=32, kvh=32, d=80)          # zamba2-2.7b shared block
 SERVE = dict(max_batch=8, block_size=16, pad_len=512, max_new=64,
              sessions=16)
 SERVE_LAYERS = 30
@@ -388,15 +411,18 @@ def phase_flash(torch, flush):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
 
-    h, kvh, d = STARCODER["h"], STARCODER["kvh"], STARCODER["d"]
+    sc, za = STARCODER, ZAMBA2_ATTN
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for kind, s, dtype in [("path", SERVE["pad_len"], torch.bfloat16),
-                           ("path", SERVE["pad_len"], torch.float32),
-                           ("ragged", 24, torch.bfloat16),
-                           ("ragged", 24, torch.float32),
-                           ("ragged", 1000, torch.bfloat16),
-                           ("ragged", 1000, torch.float32)]:
+    for kind, s, dtype, heads in [
+            ("path", SERVE["pad_len"], torch.bfloat16, sc),
+            ("path", SERVE["pad_len"], torch.float32, sc),
+            ("ragged", 24, torch.bfloat16, sc),
+            ("ragged", 24, torch.float32, sc),
+            ("ragged", 1000, torch.bfloat16, sc),
+            ("ragged", 1000, torch.float32, sc),
+            ("zamba2", RECURRENT["pad_len"], torch.bfloat16, za)]:
+        h, kvh, d = heads["h"], heads["kvh"], heads["d"]
         q = torch.randn((1, s, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((1, s, kvh, d), generator=gen,
                         device="cuda").to(dtype)
@@ -648,6 +674,15 @@ def phase_serve(torch, smi):
             prof_srv.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    emit("serve_profile", steps=steps, batch=len(prof_srv.running),
+         **_device_profile(torch, prof, wall_us, steps, "serve profile"))
+    return launches
+
+
+def _device_profile(torch, prof, wall_us: float, steps: int,
+                    what: str) -> dict:
+    """Per step: wall and device-busy time, the busy share, kernel
+    launches and the eight kernels with the most device time."""
     kernels: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -655,18 +690,16 @@ def phase_serve(torch, smi):
             k[0] += 1
             k[1] += e.self_device_time_total
     busy_us = sum(us for _, us in kernels.values())
-    check(busy_us > 0, "serve profile: no device time recorded")
+    check(busy_us > 0, f"{what}: no device time recorded")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
-    emit("serve_profile", steps=steps, batch=len(prof_srv.running),
-         wall_ms_per_step=wall_us / steps / 1e3,
-         device_busy_ms_per_step=busy_us / steps / 1e3,
-         device_busy_share=busy_us / wall_us,
-         kernel_launches_per_step=sum(c for c, _ in kernels.values())
-         / steps,
-         top_kernels_per_step=[{"name": k, "launches": c / steps,
-                                "device_us": us / steps}
-                               for k, (c, us) in top])
-    return launches
+    return {"wall_ms_per_step": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "kernel_launches_per_step":
+                sum(c for c, _ in kernels.values()) / steps,
+            "top_kernels_per_step": [{"name": k, "launches": c / steps,
+                                      "device_us": us / steps}
+                                     for k, (c, us) in top]}
 
 
 def phase_serve_parity(torch):
@@ -707,6 +740,318 @@ def phase_serve_parity(torch):
                      f"{len(same)} engine streams differ from sequential")
     check(logit_err <= 1e-4, f"serve_parity: flash vs xla prefill logits "
                              f"differ by {logit_err} > 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# recurrent serving: the SSD-scan kernel, zamba2 and xlstm at full width
+# ---------------------------------------------------------------------------
+
+RECURRENT = dict(pad_len=512, max_new=32, sessions=4)
+#: per prefill: (ssd_scan launches, flash launches) of the published models
+RECURRENT_LAUNCHES = {"zamba2-2.7b": (45, 9), "xlstm-350m": (21, 0)}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def ssd_flops(b: int, nh: int, s: int, dk: int, dv: int) -> int:
+    """The reference's operations for one call: its chunk (256, halved
+    until it divides S) and per chunk q k^T, the gated product with v,
+    q . H and the state update, two flops per multiply-add."""
+    c = min(256, s)
+    while s % c:
+        c //= 2
+    return b * nh * (s // c) * 2 * (c * c * dk + c * c * dv + 2 * c * dk * dv)
+
+
+def _ssd_inputs(torch, gen, arch, s, dtype, h0_scale):
+    """Inputs shaped and scaled as the two families' prefill makes them.
+    zamba2: B and C one [S, 64] draw broadcast over 80 heads (head stride
+    0), v = x * dt, log_a = dt * A with A = -(1..80) per head and dt =
+    softplus(N(0, 1)), so a reaches about -55 a step at the last heads.
+    xlstm: q / sqrt(512), v with mLSTM's ones column (dv 513) times a
+    sigmoid input gate, log_a = logsigmoid(N(0, 1))."""
+    import torch.nn.functional as F
+
+    dev = dict(device="cuda")
+    if arch == "zamba2":
+        b, nh, dk, dv = 1, 80, 64, 64
+        bc = torch.randn((2, b, 1, s, dk), generator=gen, **dev).to(dtype)
+        q, k = (x.expand(b, nh, s, dk) for x in bc)
+        dt = F.softplus(torch.randn((b, nh, s), generator=gen, **dev))
+        a = -torch.arange(1, nh + 1, dtype=torch.float32, **dev)
+        log_a = dt * a[None, :, None]
+        v = (torch.randn((b, nh, s, dv), generator=gen, **dev)
+             * dt[..., None]).to(dtype)
+    else:
+        b, nh, dk, dv = 1, 4, 512, 513
+        q = (torch.randn((b, nh, s, dk), generator=gen, **dev)
+             / math.sqrt(dk)).to(dtype)
+        k = torch.randn((b, nh, s, dk), generator=gen, **dev).to(dtype)
+        v = torch.cat([torch.randn((b, nh, s, dk), generator=gen, **dev),
+                       torch.ones((b, nh, s, 1), **dev)], dim=-1)
+        gate = torch.sigmoid(torch.randn((b, nh, s), generator=gen, **dev))
+        v = (v * gate[..., None]).to(dtype)
+        log_a = F.logsigmoid(torch.randn((b, nh, s), generator=gen, **dev))
+    h0 = torch.randn((b, nh, dk, dv), generator=gen, **dev) * h0_scale
+    return q, k, v, log_a, h0
+
+
+def _storage_bytes(t) -> int:
+    """Bytes a tensor's elements occupy, counting a broadcast (stride 0)
+    axis once: what a call must read of it."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def phase_ssd_scan(torch, flush):
+    """The SSD-scan kernel against ``ssd_scan_ref`` (the sequential scan)
+    at both families' prefill shapes, S=200 (ragged) and S=1, with a
+    nonzero h0 in all but the path rows. y and h_final each within
+    1e-4 (f32) or 2e-2 (bf16) of the plain version, relative to its
+    largest magnitude: the kernel sums each chunk's products in another
+    order than the step-by-step scan, across 512 steps, and bf16 y
+    rounds once more. No single PyTorch call computes a gated linear
+    recurrence, so there is no library time."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    s_path = RECURRENT["pad_len"]
+    rows = []
+    for kind, arch, s, dtype, h0_scale in [
+            ("path", "zamba2", s_path, torch.bfloat16, 0.0),
+            ("path", "zamba2", s_path, torch.float32, 0.0),
+            ("path", "xlstm", s_path, torch.bfloat16, 0.0),
+            ("path", "xlstm", s_path, torch.float32, 0.0),
+            ("ragged", "zamba2", 200, torch.bfloat16, 0.5),
+            ("ragged", "xlstm", 200, torch.float32, 0.5),
+            ("s1", "zamba2", 1, torch.float32, 0.5),
+            ("s1", "xlstm", 1, torch.bfloat16, 0.5)]:
+        q, k, v, log_a, h0 = _ssd_inputs(torch, gen, arch, s, dtype,
+                                         h0_scale)
+        y, h = ss.ssd_scan_fwd(q, k, v, log_a, h0)
+        y_ref, h_ref = ssd_scan_ref(q, k, v, log_a, h0)
+        torch.cuda.synchronize()
+        name = str(dtype).replace("torch.", "")
+        tol = SSD_TOL[name]
+        err = float((y.float() - y_ref.float()).abs().max())
+        h_err = float((h - h_ref).abs().max())
+        y_max = float(y_ref.float().abs().max())
+        h_max = float(h_ref.abs().max())
+        check(y.dtype == dtype and y.shape == v.shape
+              and h.shape == h0.shape and h.dtype == torch.float32,
+              f"ssd_scan {arch} S={s}: bad outputs")
+        check(bool(torch.isfinite(y.float()).all())
+              and bool(torch.isfinite(h).all()),
+              f"ssd_scan {arch} S={s} {name}: non-finite output")
+        check(err <= tol * max(y_max, 1e-30)
+              and h_err <= tol * max(h_max, 1e-30),
+              f"ssd_scan {arch} S={s} {name}: y err {err} (max {y_max}), "
+              f"h err {h_err} (max {h_max}) beyond {tol} relative")
+        b, nh, _, dk = q.shape
+        dv = v.shape[3]
+        nbytes = (sum(_storage_bytes(t) for t in (q, k, v, log_a, h0))
+                  + _nbytes(y, h))
+        bound = attention_bound_ms(nbytes, ssd_flops(b, nh, s, dk, dv),
+                                   dtype == torch.bfloat16)
+        timed = kind == "path"
+        row = _row(kind, dtype, err, tol,
+                   device_ms(torch, lambda: ss.ssd_scan_fwd(
+                       q, k, v, log_a, h0), flush=flush) if timed else None,
+                   device_ms(torch, lambda: ssd_scan_ref(
+                       q, k, v, log_a, h0), reps=5, flush=flush)
+                   if timed else None,
+                   None, bound, arch=arch, b=b, nh=nh, S=s, dk=dk, dv=dv,
+                   qk_head_stride=q.stride(1))
+        row.update(y_rel_err=err / max(y_max, 1e-30), h_max_abs_err=h_err,
+                   h_rel_err=h_err / max(h_max, 1e-30), y_max_abs=y_max,
+                   h_max_abs=h_max, h0_scale=h0_scale, tol_is_relative=True)
+        rows.append(row)
+        emit("ssd_scan", **row)
+    return rows
+
+
+def _recurrent_prompts(vocab: int, n: int, length: int):
+    """``n`` prompts of exactly ``length`` tokens from ``default_rng(0)``
+    (recurrent families take fixed-length prompts)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, length).tolist() for _ in range(n)]
+
+
+def phase_serve_recurrent(torch, smi):
+    """zamba2-2.7b and xlstm-350m at full width through
+    ``run_sequential``, the recurrent families' serving path: 4 sessions,
+    prompts of exactly 512 tokens, 32 new tokens each, bf16, random
+    weights from seed 0 drawn on the card. Then one prefill and eight
+    decode steps each under ``torch.profiler``: device-busy share and
+    the kernels that fill it (the profiler slows the host, so these are
+    shares, not speeds)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import group_layout
+    from repro_torch.serve import run_sequential
+    from repro_torch.tree import tree_leaves
+
+    pad, new, n = (RECURRENT["pad_len"], RECURRENT["max_new"],
+                   RECURRENT["sessions"])
+    totals = {"ssd_scan": 0, "flash_attention": 0}
+    for arch, (n_ssd, n_flash) in RECURRENT_LAUNCHES.items():
+        cfg = get_config(arch)
+        g, p = group_layout(cfg)
+        check(cfg.dtype == "bfloat16" and cfg.attn_impl == "flash"
+              and g * (p - 1) == n_ssd
+              and (g if cfg.family == "hybrid" else 0) == n_flash,
+              f"unexpected config {cfg}")
+        model = Model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0)             # the default device: cuda
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = _recurrent_prompts(cfg.vocab_size, n, pad)
+        run_sequential(model, params, prompts[:1], max_new=2, pad_len=pad)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = run_sequential(model, params, prompts, max_new=new,
+                              pad_len=pad)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for k in totals:
+            totals[k] += launches[k]
+
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.asarray([prompts[0]], np.int32)).cuda()
+            logits, _, _ = model.forward(params, toks)
+            finite = bool(torch.isfinite(logits).all())
+        tokens = sum(len(s.generated) for s in done)
+        times = [t for s in done for t in s.token_times[1:]]
+        ttft = [s.token_times[0] for s in done]
+        emit("serve_recurrent", arch=cfg.name, family=cfg.family,
+             params=sum(x.numel() for x in tree_leaves(params)), init_s=init_s,
+             sessions=len(done), prompt_len=pad, tokens=tokens,
+             elapsed_s=elapsed, tokens_per_s=tokens / elapsed,
+             ttft_p50_ms=float(np.percentile(ttft, 50)) * 1e3,
+             per_token_p50_ms=float(np.percentile(times, 50)) * 1e3,
+             per_token_p99_ms=float(np.percentile(times, 99)) * 1e3,
+             peak_memory_bytes=peak, launches=launches,
+             expected_per_prefill={"ssd_scan": n_ssd,
+                                   "flash_attention": n_flash},
+             logits_finite=finite, card=smi)
+        check(len(done) == n and all(len(s.generated) == new for s in done),
+              f"serve_recurrent {arch}: a session did not finish with "
+              f"{new} tokens")
+        check(finite, f"serve_recurrent {arch}: logits are not finite")
+        check(launches["ssd_scan"] == n * n_ssd,
+              f"serve_recurrent {arch}: ssd_scan launched "
+              f"{launches['ssd_scan']} times for {n} prefills of {n_ssd}")
+        check(launches["flash_attention"] == n * n_flash,
+              f"serve_recurrent {arch}: flash launched "
+              f"{launches['flash_attention']} times for {n} prefills of "
+              f"{n_flash}")
+
+        # one prefill, then eight decode steps, each under the profiler
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_sequential(model, params, prompts[:1], max_new=1,
+                           pad_len=pad)
+            torch.cuda.synchronize()
+            prefill_us = (time.perf_counter() - t0) * 1e6
+        emit("serve_recurrent_profile", arch=cfg.name, part="prefill",
+             **_device_profile(torch, prof, prefill_us, 1,
+                               f"{arch} prefill profile"))
+        cache = model.init_cache(1, 16)
+        tok = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            model.decode_step(params, cache, tok)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    logits, cache = model.decode_step(params, cache, tok)
+                    tok = logits.argmax(dim=-1).to(torch.int32)
+                torch.cuda.synchronize()
+                decode_us = (time.perf_counter() - t0) * 1e6
+        emit("serve_recurrent_profile", arch=cfg.name, part="decode",
+             **_device_profile(torch, prof, decode_us, 8,
+                               f"{arch} decode profile"))
+        del params, model
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_recurrent_parity(torch):
+    """Both families' widths at reduced depth in f32 (zamba2: 6 layers,
+    attn_every 3; xlstm: 4 layers, slstm_every 2): prefill logits of the
+    kernel path (``"flash"``: the SSD-scan and flash kernels) against
+    the plain path (``"xla"``) within 1e-4, and equal greedy streams
+    (prompt 64, 8 new tokens). Where a stream parts, the step and both
+    paths' two top logits there are printed: a near tie within the
+    tolerance is reported, any other parting fails."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import run_sequential
+
+    for arch, kw in [("zamba2-2.7b", dict(num_layers=6, attn_every=3)),
+                     ("xlstm-350m", dict(num_layers=4, slstm_every=2))]:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **kw)
+        kernel = Model(cfg)
+        plain = Model(dataclasses.replace(cfg, attn_impl="xla"))
+        params = kernel.init(seed=0)
+        prompts = _recurrent_prompts(cfg.vocab_size, 2, 64)
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.asarray(prompts, np.int32)).cuda()
+            lk, _, _ = kernel.forward(params, toks)
+            lp, _, _ = plain.forward(params, toks)
+            logit_err = float((lk - lp).abs().max())
+        sk = run_sequential(kernel, params, prompts, max_new=8, pad_len=64)
+        sp = run_sequential(plain, params, prompts, max_new=8, pad_len=64)
+        partings = []
+        for a, b in zip(sk, sp):
+            if a.generated == b.generated:
+                continue
+            step = next(i for i, (x, y) in enumerate(zip(a.generated,
+                                                         b.generated))
+                        if x != y)
+            ctx = torch.as_tensor(np.asarray(
+                [list(a.prompt) + a.generated[:step]], np.int32)).cuda()
+            with torch.inference_mode():
+                top = {name: torch.topk(m.forward(params, ctx)[0][0, -1],
+                                        2).values.tolist()
+                       for name, m in (("kernel", kernel), ("plain", plain))}
+            tie = all(abs(v[0] - v[1]) <= 1e-4 for v in top.values())
+            partings.append({"session": a.sid, "step": step, "top2": top,
+                             "near_tie": tie})
+        emit("recurrent_parity", arch=arch, dtype="float32", **kw,
+             prompt_len=64, max_new=8, sessions=len(prompts),
+             streams_equal=sum(a.generated == b.generated
+                               for a, b in zip(sk, sp)),
+             partings=partings,
+             prefill_logits_kernel_vs_plain_max_abs_err=logit_err)
+        check(logit_err <= 1e-4, f"recurrent_parity {arch}: kernel vs plain "
+                                 f"prefill logits differ by {logit_err}")
+        check(all(p["near_tie"] for p in partings),
+              f"recurrent_parity {arch}: streams part without a near tie: "
+              f"{partings}")
+        del params
+        torch.cuda.empty_cache()
 
 
 def kernel_entry(name, source, replaces, launches, row):
@@ -755,16 +1100,22 @@ def main() -> None:
     flash_rows = phase_flash(torch, flush)
     paged_rows = phase_paged(torch, flush)
     decode_rows = phase_decode(torch, flush)
+    ssd_rows = phase_ssd_scan(torch, flush)
     del flush
     phase_vision(torch)
     launches = phase_federation(torch, smi)
     phase_profile(torch)
     serve_launches = phase_serve(torch, smi)
     phase_serve_parity(torch)
+    recurrent_launches = phase_serve_recurrent(torch, smi)
+    phase_recurrent_parity(torch)
 
     # group_mean: one call at each main-path leaf shape (G=9, M=3, the
     # four D, f32), times and bounds summed over the four; the attention
-    # kernels: their first (bf16, serving-path) row
+    # kernels: their first (bf16, serving-path) row; ssd_scan: its first
+    # (zamba2, bf16) row. Launches: each path's count, read right after
+    # it ran, summed over the paths a kernel lies on (flash: starcoder2
+    # serving and zamba2's prefills)
     path = [r for r in rows if r["kind"] == "path"]
     print(json.dumps({"kernels": [{
         "name": "group_mean", "route": "cuda",
@@ -781,7 +1132,8 @@ def main() -> None:
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:76",
-                     serve_launches["flash_attention"], flash_rows[0]),
+                     serve_launches["flash_attention"]
+                     + recurrent_launches["flash_attention"], flash_rows[0]),
         kernel_entry("paged_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/paged_attention.py:76",
@@ -791,6 +1143,9 @@ def main() -> None:
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:67",
                      serve_launches["decode_attention"], decode_rows[0]),
+        kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:70",
+                     recurrent_launches["ssd_scan"], ssd_rows[0]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

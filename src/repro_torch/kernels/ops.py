@@ -6,7 +6,7 @@ version for CPU tensors and the Hopper kernel for CUDA tensors.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -14,9 +14,11 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import group_mean as _group_mean
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ssd_scan as _ssd
 
 _MODULES = {"group_mean": _group_mean, "flash_attention": _flash,
-            "decode_attention": _decode, "paged_decode_attention": _paged}
+            "decode_attention": _decode, "paged_decode_attention": _paged,
+            "ssd_scan": _ssd}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -65,6 +67,17 @@ def group_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     _check(x.dim() == 3 and tuple(mask.shape) == tuple(x.shape[:2]),
            "bad shapes")
     return _group_mean.group_mean_fwd(x, mask.to(torch.float32))
+
+
+def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_a: torch.Tensor, h0: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked gated linear recurrence; see ``ssd_scan.py``.
+    q,k [b,nh,S,dk]; v [b,nh,S,dv]; log_a [b,nh,S]; h0 [b,nh,dk,dv]
+    -> (y [b,nh,S,dv] in v's dtype, h_final f32)."""
+    _check(tuple(q.shape) == tuple(k.shape), "q/k shape mismatch")
+    _check(tuple(q.shape[:3]) == tuple(v.shape[:3]), "v batch/seq mismatch")
+    return _ssd.ssd_scan_fwd(q, k, v, log_a, h0)
 
 
 def launch_counts() -> Dict[str, int]:

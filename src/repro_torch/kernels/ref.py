@@ -93,3 +93,25 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     k = k_pages[bt].reshape(b, s, kvh, d)
     v = v_pages[bt].reshape(b, s, kvh, d)
     return decode_attention_ref(q, k, v, lengths)
+
+
+def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_a: torch.Tensor, h0: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gated linear recurrence (Mamba2 SSD / mLSTM shared primitive).
+
+    q,k [b,nh,S,dk]; v [b,nh,S,dv]; log_a [b,nh,S] (<=0);
+    h0 [b,nh,dk,dv]. Sequential-scan ground truth:
+        H_t = exp(a_t) H_{t-1} + k_t^T v_t;   y_t = q_t . H_t
+    H is carried in f32; returns (y in v's dtype, h_final f32).
+    """
+    h = h0.float()
+    ys = []
+    for t in range(q.shape[2]):
+        h = h * torch.exp(log_a[:, :, t].float())[..., None, None] + \
+            torch.einsum("bhd,bhv->bhdv", k[:, :, t].float(),
+                         v[:, :, t].float())
+        ys.append(torch.einsum("bhd,bhdv->bhv", q[:, :, t].float(), h))
+    if not ys:
+        return v.clone(), h
+    return torch.stack(ys, dim=2).to(v.dtype), h

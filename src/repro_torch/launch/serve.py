@@ -5,14 +5,17 @@ plus ``--device``: enqueue N synthetic sessions (mixed prompt lengths
 with ``--vary-prompts``), drain them through the paged-KV
 :class:`~repro_torch.serve.engine.DecodeServer`, print throughput and
 latency percentiles. ``--sequential`` runs the one-session-at-a-time
-baseline instead; ``--swap-demo`` performs an identity hot-swap
-mid-drain. The model runs on CUDA (and the command raises where there
-is no GPU) unless ``--device cpu`` is given. This slice serves the
-dense family; other families and ``--ckpt-dir`` raise
-``NotImplementedError`` naming their ROADMAP.md item.
+baseline instead (also the only path for the recurrent families, ssm
+and hybrid, whose state cannot be paged: they take fixed-length
+prompts); ``--swap-demo`` performs an identity hot-swap mid-drain. The
+model runs on CUDA (and the command raises where there is no GPU)
+unless ``--device cpu`` is given. The moe family, the frontends and
+``--ckpt-dir`` raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --sessions 8 --prompt-len 24 --gen 16 --max-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 """
 from __future__ import annotations
 
@@ -72,21 +75,21 @@ def main(argv=None) -> int:
             "Queue 1 item 10)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     T.check_supported(cfg)
-    if cfg.family not in PAGED:
-        raise NotImplementedError(
-            f"serving the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 9)")
     device = resolve_device(args.device)
     model = Model(cfg)
     rng = np.random.default_rng(args.seed)
     params = model.init(args.seed, device=device)
 
+    paged = cfg.family in PAGED and not args.sequential
+    if not paged and args.vary_prompts and cfg.family not in PAGED:
+        print("[serve] recurrent family: fixed-length prompts only")
+        args.vary_prompts = False
     plens = (rng.integers(1, args.prompt_len + 1, args.sessions)
              if args.vary_prompts
              else np.full(args.sessions, args.prompt_len))
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in plens]
 
-    if args.sequential:
+    if not paged:
         print(f"[serve] sequential baseline ({cfg.family}) on {device}")
         t0 = time.perf_counter()
         done = run_sequential(model, params, prompts, max_new=args.gen,

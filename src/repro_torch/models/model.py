@@ -1,7 +1,7 @@
 """Model facade: one object per architecture config.
 
 Port of the JAX package's ``repro/models/model.py`` for the families
-this slice takes (dense; see ``transformer.check_supported``).
+the port takes (dense, ssm, hybrid; see ``transformer.check_supported``).
 ``Model.init`` runs on CUDA unless the caller asks for another device,
 and raises where there is no GPU. Caches are made on the device the
 caller names (the serving engine passes its parameters' device).
@@ -47,19 +47,22 @@ class Model:
     def forward(self, params: Tree, tokens: torch.Tensor, **kw):
         return T.forward(params, tokens, self.cfg, **kw)
 
+    @property
+    def has_frontend(self) -> bool:
+        return self.cfg.frontend != "none"
+
     def init_cache(self, batch: int, max_len: int,
-                   device: Device = None) -> Dict[str, torch.Tensor]:
+                   device: Device = None) -> Tree:
         return T.init_cache(self.cfg, batch, max_len, resolve_device(device))
 
-    def decode_step(self, params: Tree, cache: Dict[str, torch.Tensor],
-                    token: torch.Tensor
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def decode_step(self, params: Tree, cache: Tree, token: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Tree]:
         return T.decode_step(params, cache, token, self.cfg)
 
-    def prefill_cache_to_decode(self, cache: Dict[str, torch.Tensor],
-                                max_len: int, seq_len: int,
+    def prefill_cache_to_decode(self, cache: Tree, max_len: int,
+                                seq_len: int,
                                 lengths: Optional[torch.Tensor] = None
-                                ) -> Dict[str, torch.Tensor]:
+                                ) -> Tree:
         return T.prefill_cache_to_decode(cache, self.cfg, max_len, seq_len,
                                          lengths)
 

@@ -1,14 +1,22 @@
-"""Decoder stack, dense family: forward with the prefill cache, dense and
-paged decode.
+"""Decoder stack: forward with the prefill cache, dense and paged decode.
 
 Port of the JAX package's ``repro/models/transformer.py`` for the dense
-family. Layer params are stacked along a leading ``[L]`` axis, as in the
-reference, so the carry-over is the identity; the decoder is a Python
-loop over the layer views ``leaf[i]`` (the reference's ``lax.scan``).
-KV caches and the paged pool are updated in place.
+family and the recurrent ones. Layer params are stacked along leading
+axes, as in the reference, so the carry-over is the identity; the
+decoder is a Python loop over the layer views ``leaf[i]`` (the
+reference's ``lax.scan``). Heterogeneous families use *periodic groups*:
 
-Families this slice does not take (moe, ssm, hybrid) and modality
-frontends raise ``NotImplementedError`` naming their ROADMAP.md item.
+* dense           : one run of L attention blocks, ``blocks`` [L, ...]
+* ssm (xlstm)     : G groups of (p-1 mLSTM + 1 sLSTM), p = slstm_every;
+                    ``blocks.mlstm`` [G, p-1, ...], ``blocks.slstm``
+                    [G, ...]
+* hybrid (zamba2) : G groups of (p-1 Mamba2 + 1 SHARED attention block),
+                    p = attn_every; ``blocks`` [G, p-1, ...] and one
+                    ``shared_attn`` reused by every group
+
+KV caches, recurrent states and the paged pool are updated in place.
+The moe family and the modality frontends raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -19,19 +27,21 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.tree import Tree, tree_map
 
 Tensor = torch.Tensor
 
 #: families whose backbone is a run of attention + MLP blocks
 DENSE_FAMILIES = ("dense", "vlm", "audio")
-#: families this slice does not take, with the ROADMAP.md item that does
-UNPORTED_FAMILIES = {"moe": "Queue 1 item 9", "ssm": "Queue 1 item 9",
-                     "hybrid": "Queue 1 item 9"}
+#: families whose decode state is recurrent (no pageable KV cache)
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+#: families the port does not take yet, with the ROADMAP.md item that does
+UNPORTED_FAMILIES = {"moe": "Queue 1 item 9"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not take."""
+    """Raise ``NotImplementedError`` for what the port does not take."""
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet "
@@ -40,7 +50,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"the {cfg.frontend} frontend ({cfg.name}) is not ported yet "
             f"(ROADMAP.md, Queue 1 item 9)")
-    if cfg.family not in DENSE_FAMILIES:
+    if cfg.family not in DENSE_FAMILIES + RECURRENT_FAMILIES:
         raise ValueError(cfg.family)
 
 
@@ -79,18 +89,40 @@ def _stack(n: int, init_fn: Callable[[], Tree]) -> Tree:
     return out
 
 
+def _attn_mlp_init(gen: torch.Generator, cfg: ModelConfig) -> Tree:
+    dt, d, dev = L.torch_dtype(cfg), cfg.d_model, gen.device
+    return {"norm1": L.rmsnorm_init(d, dt, dev),
+            "attn": L.attention_init(gen, cfg),
+            "norm2": L.rmsnorm_init(d, dt, dev),
+            "mlp": L.mlp_init(gen, cfg)}
+
+
+def _cell_init(gen: torch.Generator, cfg: ModelConfig, init_fn) -> Tree:
+    return {"norm": L.rmsnorm_init(cfg.d_model, L.torch_dtype(cfg),
+                                   gen.device),
+            "cell": init_fn(gen, cfg)}
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Tree]:
     """Random parameters drawn from ``gen`` on its device."""
     check_supported(cfg)
     dt = L.torch_dtype(cfg)
     d, dev = cfg.d_model, gen.device
+    g, p = group_layout(cfg)
     params: Dict[str, Tree] = {"embedding": L.embedding_init(gen, cfg)}
-    params["blocks"] = _stack(cfg.num_layers, lambda: {
-        "norm1": L.rmsnorm_init(d, dt, dev),
-        "attn": L.attention_init(gen, cfg),
-        "norm2": L.rmsnorm_init(d, dt, dev),
-        "mlp": L.mlp_init(gen, cfg),
-    })
+    if cfg.family == "ssm":
+        params["blocks"] = _stack(g, lambda: {
+            "mlstm": _stack(p - 1, lambda: _cell_init(gen, cfg,
+                                                      S.mlstm_init)),
+            "slstm": _cell_init(gen, cfg, S.slstm_init),
+        })
+    elif cfg.family == "hybrid":
+        params["blocks"] = _stack(g, lambda: _stack(
+            p - 1, lambda: _cell_init(gen, cfg, S.mamba_init)))
+        params["shared_attn"] = _attn_mlp_init(gen, cfg)
+    else:
+        params["blocks"] = _stack(cfg.num_layers,
+                                  lambda: _attn_mlp_init(gen, cfg))
     params["final_norm"] = L.rmsnorm_init(d, dt, dev)
     return params
 
@@ -110,13 +142,75 @@ def _attn_mlp_block(bp: Tree, h: Tensor, cfg: ModelConfig,
     return h + L.mlp_block(bp["mlp"], hin), k, v
 
 
+def _forward_ssm(params: Tree, h: Tensor, cfg: ModelConfig,
+                 collect_cache: bool):
+    """xLSTM groups; the cache holds mLSTM states [g, p-1, b, nh, hd,
+    hd+1] and the sLSTM carry, four [g, b, d] f32 tensors."""
+    g, p = group_layout(cfg)
+    mstates, scarries = [], []
+    for gi in range(g):
+        gp = layer(params["blocks"], gi)
+        ms = []
+        for li in range(p - 1):
+            lp = layer(gp["mlstm"], li)
+            y, hf = S.mlstm_block(lp["cell"],
+                                  L.rmsnorm(h, lp["norm"], cfg.norm_eps), cfg)
+            h = h + y
+            ms.append(hf)
+        sp = gp["slstm"]
+        y, carry = S.slstm_block(sp["cell"],
+                                 L.rmsnorm(h, sp["norm"], cfg.norm_eps), cfg)
+        h = h + y
+        if collect_cache:
+            mstates.append(torch.stack(ms))
+            scarries.append(carry)
+    cache = None
+    if collect_cache:
+        cache = {"mlstm": torch.stack(mstates),
+                 "slstm": tuple(torch.stack(xs) for xs in zip(*scarries))}
+    return h, cache
+
+
+def _forward_hybrid(params: Tree, h: Tensor, cfg: ModelConfig,
+                    positions: Tensor, collect_cache: bool):
+    """zamba2 groups; the shared block runs full-causal and the cache
+    keeps only its last ``w = min(window, s)`` K/V rows per group."""
+    g, p = group_layout(cfg)
+    shared = params["shared_attn"]
+    w = min(cfg.shared_attn_window, h.shape[1])
+    sstates, convs, ks, vs = [], [], [], []
+    for gi in range(g):
+        gp = layer(params["blocks"], gi)
+        ss, cs = [], []
+        for li in range(p - 1):
+            lp = layer(gp, li)
+            y, hf, ctail = S.mamba_block(
+                lp["cell"], L.rmsnorm(h, lp["norm"], cfg.norm_eps), cfg)
+            h = h + y
+            ss.append(hf)
+            cs.append(ctail)
+        h, k, v = _attn_mlp_block(shared, h, cfg, positions)
+        if collect_cache:
+            sstates.append(torch.stack(ss))
+            convs.append(torch.stack(cs))
+            ks.append(k[:, -w:])
+            vs.append(v[:, -w:])
+    cache = None
+    if collect_cache:
+        cache = {"ssm": torch.stack(sstates), "conv": torch.stack(convs),
+                 "attn_k": torch.stack(ks), "attn_v": torch.stack(vs)}
+    return h, cache
+
+
 def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
             prefix_embeds: Optional[Tensor] = None,
             collect_cache: bool = False):
     """tokens: [b, s]. Returns (logits [b, s, V] f32, aux_loss, cache).
 
-    ``aux_loss`` is 0 (no MoE here). With ``collect_cache`` the cache is
-    ``{"k", "v": [L, b, s, kvh, hd], "pos": [b] int32}``.
+    ``aux_loss`` is 0 (no MoE here). With ``collect_cache`` the cache is,
+    besides ``"pos": [b] int32``: dense ``{"k", "v": [L, b, s, kvh,
+    hd]}``; ssm ``{"mlstm", "slstm"}``; hybrid ``{"ssm", "conv",
+    "attn_k", "attn_v"}`` (see :func:`init_cache`).
     """
     check_supported(cfg)
     if prefix_embeds is not None:
@@ -125,18 +219,23 @@ def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
     b, s = tokens.shape
     h = L.embed(params["embedding"], tokens)
     positions = torch.arange(s, device=h.device)
-    blocks = params["blocks"]
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        h, k, v = _attn_mlp_block(layer(blocks, i), h, cfg, positions)
-        if collect_cache:
-            ks.append(k)
-            vs.append(v)
-    cache = None
-    if collect_cache:
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                 "pos": torch.full((b,), s, dtype=torch.int32,
-                                   device=h.device)}
+    if cfg.family == "ssm":
+        h, cache = _forward_ssm(params, h, cfg, collect_cache)
+    elif cfg.family == "hybrid":
+        h, cache = _forward_hybrid(params, h, cfg, positions, collect_cache)
+    else:
+        blocks = params["blocks"]
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            h, k, v = _attn_mlp_block(layer(blocks, i), h, cfg, positions)
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)} \
+            if collect_cache else None
+    if cache is not None:
+        cache["pos"] = torch.full((b,), s, dtype=torch.int32,
+                                  device=h.device)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embedding"], h, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -144,18 +243,58 @@ def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# Decode (dense cache: the sequential baseline)
+# Decode (dense cache: the sequential baseline; recurrent states)
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device) -> Dict[str, Tensor]:
-    """Zeroed decode cache: k, v [L, batch, max_len, kvh, hd], pos [b]."""
+               device) -> Tree:
+    """Zeroed decode cache (family-dependent, as the reference's):
+
+    * dense: ``k``, ``v`` [L, batch, max_len, kvh, hd];
+    * ssm: ``mlstm`` [g, p-1, batch, nh, hd, hd+1] f32 and ``slstm``, a
+      tuple (h, c, n, m) of [g, batch, d] f32, all zeros as in the
+      reference (a prefill starts its carry at m = -1e30 instead; the
+      stabilizer cancels in h = o c / n, so both starts decode alike);
+    * hybrid: ``conv`` [g, p-1, batch, width-1, inner+2n], ``ssm`` [g,
+      p-1, batch, nh, n, 64] f32, and the shared block's ring ``attn_k``,
+      ``attn_v`` [g, batch, min(window, max_len), kvh, hd];
+
+    each with ``pos`` [batch] int32.
+    """
     check_supported(cfg)
     dt = L.torch_dtype(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    g, p = group_layout(cfg)
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        _, mhd, nh = S.mlstm_dims(cfg)
+        return {"mlstm": torch.zeros((g, p - 1, batch, nh, mhd, mhd + 1),
+                                     **f32),
+                "slstm": tuple(torch.zeros((g, batch, cfg.d_model), **f32)
+                               for _ in range(4)),
+                "pos": pos}
+    if cfg.family == "hybrid":
+        inner, mhd, nh = S.mamba_dims(cfg)
+        n = cfg.ssm_state
+        w = min(cfg.shared_attn_window, max_len)
+        return {"conv": torch.zeros((g, p - 1, batch, cfg.ssm_conv_width - 1,
+                                     inner + 2 * n), dtype=dt, device=device),
+                "ssm": torch.zeros((g, p - 1, batch, nh, n, mhd), **f32),
+                "attn_k": torch.zeros((g, batch, w, kvh, hd), dtype=dt,
+                                      device=device),
+                "attn_v": torch.zeros((g, batch, w, kvh, hd), dtype=dt,
+                                      device=device),
+                "pos": pos}
+    shape = (cfg.num_layers, batch, max_len, kvh, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+            "pos": pos}
+
+
+def _logits(params: Tree, h: Tensor, cfg: ModelConfig) -> Tensor:
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["embedding"], h, cfg)[:, 0]
 
 
 def _decode_layers(params: Tree, h: Tensor, cfg: ModelConfig,
@@ -166,43 +305,123 @@ def _decode_layers(params: Tree, h: Tensor, cfg: ModelConfig,
         h = h + attend(bp["attn"], L.rmsnorm(h, bp["norm1"], cfg.norm_eps), i)
         h = h + L.mlp_block(bp["mlp"], L.rmsnorm(h, bp["norm2"],
                                                  cfg.norm_eps))
-    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return L.unembed(params["embedding"], h, cfg)[:, 0]
+    return _logits(params, h, cfg)
 
 
-def decode_step(params: Tree, cache: Dict[str, Tensor], token: Tensor,
-                cfg: ModelConfig) -> Tuple[Tensor, Dict[str, Tensor]]:
+def _decode_ssm(params: Tree, cache: Tree, h: Tensor,
+                cfg: ModelConfig) -> Tensor:
+    g, p = group_layout(cfg)
+    mstate, scarry = cache["mlstm"], cache["slstm"]
+    for gi in range(g):
+        gp = layer(params["blocks"], gi)
+        for li in range(p - 1):
+            lp = layer(gp["mlstm"], li)
+            y, st = S.mlstm_decode_step(
+                lp["cell"], L.rmsnorm(h, lp["norm"], cfg.norm_eps), cfg,
+                mstate[gi, li])
+            h = h + y
+            mstate[gi, li].copy_(st)
+        sp = gp["slstm"]
+        y, carry = S.slstm_decode_step(
+            sp["cell"], L.rmsnorm(h, sp["norm"], cfg.norm_eps), cfg,
+            tuple(x[gi] for x in scarry))
+        h = h + y
+        for dst, src in zip(scarry, carry):
+            dst[gi].copy_(src)
+    return h
+
+
+def _decode_hybrid(params: Tree, cache: Tree, h: Tensor, cfg: ModelConfig,
+                   pos: Tensor) -> Tensor:
+    g, p = group_layout(cfg)
+    shared = params["shared_attn"]
+    w = cache["attn_k"].shape[2]
+    for gi in range(g):
+        gp = layer(params["blocks"], gi)
+        for li in range(p - 1):
+            lp = layer(gp, li)
+            y, cst, sst = S.mamba_decode_step(
+                lp["cell"], L.rmsnorm(h, lp["norm"], cfg.norm_eps), cfg,
+                cache["conv"][gi, li], cache["ssm"][gi, li])
+            h = h + y
+            cache["conv"][gi, li].copy_(cst)
+            cache["ssm"][gi, li].copy_(sst)
+        hn = L.rmsnorm(h, shared["norm1"], cfg.norm_eps)
+        att, _, _ = L.attention_decode(shared["attn"], hn, cfg,
+                                       cache["attn_k"][gi],
+                                       cache["attn_v"][gi], pos, window=w)
+        h = h + att
+        h = h + L.mlp_block(shared["mlp"],
+                            L.rmsnorm(h, shared["norm2"], cfg.norm_eps))
+    return h
+
+
+def decode_step(params: Tree, cache: Tree, token: Tensor,
+                cfg: ModelConfig) -> Tuple[Tensor, Tree]:
     """One decode step. token: [b] int. Returns (logits [b, V], cache):
-    the K/V rows are written into ``cache`` in place and ``pos`` moves
-    on by one."""
+    the K/V rows and recurrent states are written into ``cache`` in
+    place and ``pos`` moves on by one."""
     check_supported(cfg)
     pos = cache["pos"]
     h = L.embed(params["embedding"], token[:, None])      # [b, 1, d]
+    if cfg.family == "ssm":
+        h = _decode_ssm(params, cache, h, cfg)
+    elif cfg.family == "hybrid":
+        h = _decode_hybrid(params, cache, h, cfg, pos)
+    else:
+        def attend(ap, hn, i):
+            return L.attention_decode(ap, hn, cfg, cache["k"][i],
+                                      cache["v"][i], pos)[0]
 
-    def attend(ap, hn, i):
-        return L.attention_decode(ap, hn, cfg, cache["k"][i], cache["v"][i],
-                                  pos)[0]
-
-    logits = _decode_layers(params, h, cfg, attend)
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+        return _decode_layers(params, h, cfg, attend), \
+            {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return _logits(params, h, cfg), {**cache, "pos": pos + 1}
 
 
 # ---------------------------------------------------------------------------
 # Prefill -> decode cache handoff
 # ---------------------------------------------------------------------------
 
-def prefill_cache_to_decode(cache: Dict[str, Tensor], cfg: ModelConfig,
-                            max_len: int, seq_len: int,
-                            lengths: Optional[Tensor] = None
-                            ) -> Dict[str, Tensor]:
+def prefill_cache_to_decode(cache: Tree, cfg: ModelConfig, max_len: int,
+                            seq_len: int,
+                            lengths: Optional[Tensor] = None) -> Tree:
     """Convert a ``forward(collect_cache=True)`` cache into the decode
-    layout of ``init_cache(cfg, b, max_len)``: pad the KV seq axis out to
-    ``max_len`` (no prompt replay). ``lengths`` [b] overrides ``pos`` for
-    batches prefilled on right-padded prompts (decode then overwrites the
-    first pad slot and masks the rest)."""
+    layout of ``init_cache(cfg, b, max_len)`` — no prompt replay.
+
+    * dense: pad the KV seq axis out to ``max_len``.
+    * ssm: states are O(1) and already decode-shaped — pass through.
+    * hybrid: conv/ssm states pass through; the sliding-window KV kept by
+      forward (last ``w_f = min(window, s)`` positions, in position
+      order) is padded to the decode window ``w_d = min(window,
+      max_len)`` and rotated so index ``j`` lands at ring slot
+      ``(s - w_f + j) % w_d``, as ``attention_decode(window=w_d)``
+      expects.
+
+    ``lengths`` [b] overrides ``pos`` for batches prefilled on
+    right-padded prompts (decode then overwrites the first pad slot and
+    masks the rest). Only meaningful for the dense family — recurrent
+    states absorb pad tokens, so ssm/hybrid must prefill at exact length.
+    """
     check_supported(cfg)
-    del seq_len                       # only the recurrent families use it
     pos = cache["pos"] if lengths is None else lengths.to(torch.int32)
+    if cfg.family == "ssm":
+        return {"mlstm": cache["mlstm"], "slstm": cache["slstm"],
+                "pos": pos}
+    if cfg.family == "hybrid":
+        k, v = cache["attn_k"], cache["attn_v"]     # [g, b, w_f, kvh, hd]
+        w_f = k.shape[2]
+        w_d = min(cfg.shared_attn_window, max_len)
+        assert w_f <= w_d, (w_f, w_d)
+        if w_f < w_d:
+            pad = (0, 0, 0, 0, 0, w_d - w_f)
+            k, v = F.pad(k, pad), F.pad(v, pad)
+        # index j holds position s - w_f + j -> ring slot (s - w_f + j) % w_d
+        shift = (seq_len - w_f) % w_d
+        if shift:
+            k = torch.roll(k, shift, dims=2)
+            v = torch.roll(v, shift, dims=2)
+        return {"conv": cache["conv"], "ssm": cache["ssm"],
+                "attn_k": k, "attn_v": v, "pos": pos}
     s = cache["k"].shape[2]
     assert s <= max_len, (s, max_len)
     pad = (0, 0, 0, 0, 0, max_len - s)          # the seq axis of [L,b,s,kvh,hd]
@@ -217,16 +436,20 @@ def prefill_cache_to_decode(cache: Dict[str, Tensor], cfg: ModelConfig,
 PAGED_FAMILIES = ("dense",)
 
 
+def _check_paged(cfg: ModelConfig) -> None:
+    check_supported(cfg)
+    if cfg.family not in PAGED_FAMILIES:
+        raise ValueError(
+            f"paged KV serving needs a KV-cache family, got {cfg.family}")
+
+
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device) -> Dict[str, Tensor]:
     """Zeroed paged KV pool shared by all sessions: ``[L, num_blocks,
     block_size, kvh, hd]`` per tensor. Block 0 is the engine's scratch
-    page (inactive batch rows write there)."""
-    check_supported(cfg)
-    if cfg.family not in PAGED_FAMILIES:
-        raise NotImplementedError(
-            f"paged serving of the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 9)")
+    page (inactive batch rows write there). KV-cache families only —
+    ssm/hybrid state is O(1)/O(window) and needs no paging."""
+    _check_paged(cfg)
     dt = L.torch_dtype(cfg)
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.head_dim)
@@ -241,11 +464,7 @@ def paged_decode_step(params: Tree, pages: Dict[str, Tensor],
     [b, nblk] int32; pos [b] = tokens already in cache (the new token
     writes at slot ``pos`` of its session's pages, in place). Returns
     (logits [b, V], pages)."""
-    check_supported(cfg)
-    if cfg.family not in PAGED_FAMILIES:
-        raise NotImplementedError(
-            f"paged serving of the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 9)")
+    _check_paged(cfg)
     h = L.embed(params["embedding"], token[:, None])      # [b, 1, d]
 
     def attend(ap, hn, i):
@@ -254,4 +473,3 @@ def paged_decode_step(params: Tree, pages: Dict[str, Tensor],
                                         pos)[0]
 
     return _decode_layers(params, h, cfg, attend), pages
-

@@ -18,7 +18,9 @@ swapped in between steps without dropping in-flight sessions.
   updated in place.
 * :func:`run_sequential` — the pre-engine serve loop (one session at a
   time, dense cache, plain attention in decode), the baseline the
-  engine's greedy streams must equal.
+  engine's greedy streams must equal, and the only path of the
+  recurrent families (ssm, hybrid: the SSD-scan kernel in every
+  prefill on the card).
 * Hot-swap — ``swap_params`` installs new weights between steps;
   ``serving_params_from_checkpoint`` folds a peer-stacked FL checkpoint
   into serving weights (the peer mean). Polling a ``Checkpointer``
@@ -133,9 +135,9 @@ class DecodeServer:
     def __init__(self, model: Model, params: Tree, cfg: ServeConfig):
         T.check_supported(model.cfg)
         if model.cfg.family not in T.PAGED_FAMILIES:
-            raise NotImplementedError(
-                f"paged serving of the {model.cfg.family} family is not "
-                f"ported yet (ROADMAP.md, Queue 1 item 9)")
+            raise ValueError(
+                f"paged serving supports KV-cache families, "
+                f"got {model.cfg.family}")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -330,10 +332,16 @@ class DecodeServer:
 def run_sequential(model: Model, params: Tree,
                    prompts: Sequence[Sequence[int]], max_new: int,
                    pad_len: int) -> List[Session]:
-    """One session at a time against a dense cache, with the
-    decode-ready prefill handoff (no prompt replay). The baseline:
-    identical greedy tokens to the engine, none of the batching."""
+    """One session at a time against a dense cache (or the recurrent
+    families' states), with the decode-ready prefill handoff (no prompt
+    replay). The baseline: identical greedy tokens to the engine, none
+    of the batching; the only serving path of the recurrent families,
+    whose state cannot be paged. Their prompts must be exactly
+    ``pad_len`` long (the state would absorb pad tokens)."""
+    if model.has_frontend:
+        raise ValueError("run_sequential takes token prompts only")
     T.check_supported(model.cfg)
+    recurrent = model.cfg.family in T.RECURRENT_FAMILIES
     device = tree_leaves(params)[0].device
     max_len = pad_len + max_new
     out = []
@@ -341,6 +349,11 @@ def run_sequential(model: Model, params: Tree,
         prompt = np.asarray(prompt, np.int32)
         if prompt.shape[0] > pad_len:
             raise ValueError(f"prompt len {prompt.shape[0]} > {pad_len}")
+        if recurrent and prompt.shape[0] != pad_len:
+            # recurrent state absorbs pad tokens — exact length only
+            raise ValueError(
+                f"{model.cfg.family} prompts must be exactly pad_len="
+                f"{pad_len} (got {prompt.shape[0]})")
         sess = Session(sid=sid, prompt=prompt, max_new=max_new,
                        t_enqueue=time.perf_counter())
         toks = np.zeros((1, pad_len), np.int32)

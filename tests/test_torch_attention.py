@@ -216,7 +216,8 @@ def test_cpu_paths_are_plain_and_count_no_launch():
         ref.decode_attention_ref(t_in[0], kc, kc, lens), rtol=0, atol=0)
     assert ops.launch_counts() == {"group_mean": 0, "flash_attention": 0,
                                    "decode_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "ssd_scan": 0}
 
 
 def test_non_cpu_tensors_never_fall_back():
