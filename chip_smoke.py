@@ -10,7 +10,9 @@ Phases, each printing JSON lines:
                 for matmuls and cuDNN so f32 means f32.
 2. build      — nvcc builds every kernel under
                 src/repro_torch/kernels/csrc/, one process per source,
-                all started together.
+                all started together; a ``ptxas`` line gives the
+                registers, spill bytes and static shared memory of each
+                flash and decode kernel.
 3. group_mean — the CUDA kernel against its plain PyTorch version on the
                 card, at the main path's leaf shapes (G=9, M=3,
                 D in {98304, 128, 2560, 20}, f32), D=98304 in bf16, a
@@ -20,14 +22,22 @@ Phases, each printing JSON lines:
 4. flash_attention, paged_decode, decode_attention — each attention
                 kernel against its plain version on the card, at the
                 serving path's shapes in bf16 and f32 plus ragged cases
-                (flash: s=512, 24 and 1000, o and lse; paged: lengths 1,
-                full and mid-page and a row on the scratch page only;
-                dense decode: S=1000). f32 within 2e-5, bf16 within
-                2e-2: the kernels sum in another order than the plain
-                versions, and the plain decode paths round the
-                probabilities to v's dtype. Median device times of the
-                kernel, the plain version and one PyTorch library call
-                (SDPA) beside the bound, with L2 flushed before each.
+                and the bf16 kernels' tile edges (flash: s=512, 24 and
+                1000, s=65 and 129 one past a 64-row tile, d=80 at
+                s=200, o and lse; paged: lengths 1, full and mid-page
+                and a row on the scratch page only; dense decode:
+                S=1000, S=1, and rows of length 0, which must be
+                zeros). f32 within 2e-5, bf16 within 2e-2: the kernels
+                sum in another order than the plain versions, the bf16
+                kernels round the probabilities to bf16 before P V, and
+                the plain decode paths round them to v's dtype. Median
+                device times of the kernel, the plain version and one
+                PyTorch library call (SDPA) beside the bound, with L2
+                flushed before each; every row also gives bound_share
+                (bound / kernel time) and vs_library (kernel / library
+                time, null without a library call). A launch_floor line
+                times one 8-element add the same way: the floor under
+                every small kernel's time.
 5. vision     — 16 peers on the vision task (the CNN), 3 iterations,
                 kernel on: finite loss, disagreement <= 1e-10.
 6. federation — the quickstart config (27 peers, text task, MLP head
@@ -48,7 +58,8 @@ Phases, each printing JSON lines:
                 Every session finishes with 64 tokens, the pool is
                 quiescent, the logits are finite, and the flash and
                 paged kernels launch 30 times per prefill and per decode
-                step. Then ten decode steps under ``torch.profiler``.
+                step. Then ten decode steps and one prefill under
+                ``torch.profiler``.
 9. serve_parity — the same widths at 2 layers in f32: the engine's
                 greedy streams (paged kernel) equal the sequential
                 baseline's (plain dense decode), and prefill logits with
@@ -194,6 +205,7 @@ def phase_group_mean(torch, gm, ref):
                "plain_ms": device_ms(
                    torch, lambda: ref.group_mean_ref(x, mask)),
                "bound_ms": max(bound.values()), **bound}
+        row.update(shares(row["kernel_ms"], row["bound_ms"], None))
         rows.append(row)
         emit("group_mean", **row)
     return rows
@@ -390,13 +402,23 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def shares(kernel_ms, bound_ms, library_ms) -> dict:
+    """``bound_share``: the bound over the kernel's time (1 at the
+    bound); ``vs_library``: the kernel's time over the library call's
+    (null where there is none, or the kernel was not timed)."""
+    return {"bound_share": bound_ms / kernel_ms if kernel_ms else None,
+            "vs_library": (kernel_ms / library_ms
+                           if kernel_ms and library_ms else None)}
+
+
 def _row(kind, dtype, err, tol, kernel_ms, plain_ms, library_ms, bound,
          **shape):
+    bound_ms = max(bound.values())
     return {"kind": kind, **shape,
             "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
             "tol": tol, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bound.values()),
-            **bound}
+            "library_ms": library_ms, "bound_ms": bound_ms, **bound,
+            **shares(kernel_ms, bound_ms, library_ms)}
 
 
 def _tol(torch, dtype) -> float:
@@ -421,7 +443,10 @@ def phase_flash(torch, flush):
             ("ragged", 24, torch.float32, sc),
             ("ragged", 1000, torch.bfloat16, sc),
             ("ragged", 1000, torch.float32, sc),
-            ("zamba2", RECURRENT["pad_len"], torch.bfloat16, za)]:
+            ("zamba2", RECURRENT["pad_len"], torch.bfloat16, za),
+            ("tile_edge", 65, torch.bfloat16, sc),
+            ("tile_edge", 129, torch.bfloat16, sc),
+            ("zamba2_ragged", 200, torch.bfloat16, za)]:
         h, kvh, d = heads["h"], heads["kvh"], heads["d"]
         q = torch.randn((1, s, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((1, s, kvh, d), generator=gen,
@@ -516,22 +541,30 @@ def phase_paged(torch, flush):
 
 def phase_decode(torch, flush):
     """The dense decode kernel against ``decode_attention_ref`` on a
-    cache of S=1000 (not a multiple of the tile); SDPA with a boolean
-    length mask as the library yardstick."""
+    cache of S=1000 (not a multiple of the tile), at the split edges: a
+    cache of S=1, and rows of length 0 (which get zeros); SDPA with a
+    boolean length mask as the library yardstick."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.ref import decode_attention_ref
 
     h, kvh, d = STARCODER["h"], STARCODER["kvh"], STARCODER["d"]
-    b, s = SERVE["max_batch"], 1000
-    lengths_host = [1, s, 999, 500, 33, 640, 17, 250]
-    lengths = torch.tensor(lengths_host, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(s, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]          # [b, 1, 1, S]
+    b = SERVE["max_batch"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for kind, s, dtype, lengths_host in [
+            ("S1000", 1000, torch.bfloat16, [1, 1000, 999, 500, 33, 640, 17,
+                                             250]),
+            ("S1000", 1000, torch.float32, [1, 1000, 999, 500, 33, 640, 17,
+                                            250]),
+            ("S1", 1, torch.bfloat16, [1, 0, 1, 1, 0, 1, 1, 1]),
+            ("len0", 1000, torch.bfloat16, [0, 1000, 0, 999, 33, 640, 0,
+                                            250])]:
+        lengths = torch.tensor(lengths_host, dtype=torch.int32,
+                               device="cuda")
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]      # [b, 1, 1, S]
         q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
         kc = torch.randn((b, s, kvh, d), generator=gen,
                          device="cuda").to(dtype)
@@ -541,14 +574,22 @@ def phase_decode(torch, flush):
         want = decode_attention_ref(q, kc, vc, lengths)
         torch.cuda.synchronize()
         tol = _tol(torch, dtype)
-        err = float((out.float() - want.float()).abs().max())
-        check(err <= tol, f"decode {dtype}: max abs err {err} > {tol}")
+        # a row of length 0 gets zeros, as the TPU kernel gives; the plain
+        # version's softmax over all-masked scores averages v instead
+        filled = [i for i, n in enumerate(lengths_host) if n > 0]
+        empty = [i for i, n in enumerate(lengths_host) if n == 0]
+        err = float((out[filled].float() - want[filled].float()).abs().max())
+        check(bool(torch.isfinite(out).all()),
+              f"decode {kind} {dtype}: non-finite output")
+        check(err <= tol, f"decode {kind} {dtype}: max abs err {err} > {tol}")
+        check(not empty or not bool(out[empty].any()),
+              f"decode {kind}: a row of length 0 is not all zeros")
         nbytes, flops = _decode_bytes_flops(
             q, 2 * kvh * d * q.element_size(), lengths_host, h, d)
         nbytes += _nbytes(lengths)
         bound = attention_bound_ms(nbytes, flops, dtype == torch.bfloat16)
         q4, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
-        row = _row("S1000", dtype, err, tol,
+        row = _row(kind, dtype, err, tol,
                    device_ms(torch, lambda: da.decode_attention_fwd(
                        q, kc, vc, lengths), flush=flush),
                    device_ms(torch, lambda: decode_attention_ref(
@@ -676,13 +717,32 @@ def phase_serve(torch, smi):
         wall_us = (time.perf_counter() - t0) * 1e6
     emit("serve_profile", steps=steps, batch=len(prof_srv.running),
          **_device_profile(torch, prof, wall_us, steps, "serve profile"))
+
+    # one full-width prefill (pad 512) under the profiler
+    toks = _prompt_tokens(torch, prompts[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.forward(params, toks)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    emit("serve_prefill_profile", pad_len=SERVE["pad_len"],
+         **_device_profile(torch, prof, wall_us, 1, "serve prefill profile"))
     return launches
+
+
+#: name stems of the port's own kernels in a profiler trace
+PORT_KERNELS = ("flash_fwd_", "decode_split_", "ssd_scan_kernel",
+                "group_mean_kernel")
 
 
 def _device_profile(torch, prof, wall_us: float, steps: int,
                     what: str) -> dict:
     """Per step: wall and device-busy time, the busy share, kernel
-    launches and the eight kernels with the most device time."""
+    launches, the eight kernels with the most device time, and the
+    port's own kernels with their share of the busy time."""
     kernels: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -692,7 +752,17 @@ def _device_profile(torch, prof, wall_us: float, steps: int,
     busy_us = sum(us for _, us in kernels.values())
     check(busy_us > 0, f"{what}: no device time recorded")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    port = {}
+    for name, (c, us) in kernels.items():
+        for k in PORT_KERNELS:
+            if k in name:
+                p = port.setdefault(k, {"launches": 0.0, "device_us": 0.0})
+                p["launches"] += c / steps
+                p["device_us"] += us / steps
+    for p in port.values():
+        p["share_of_busy"] = p["device_us"] / (busy_us / steps)
     return {"wall_ms_per_step": wall_us / steps / 1e3,
+            "port_kernels_per_step": port,
             "device_busy_ms_per_step": busy_us / steps / 1e3,
             "device_busy_share": busy_us / wall_us,
             "kernel_launches_per_step":
@@ -1054,6 +1124,43 @@ def phase_recurrent_parity(torch):
         torch.cuda.empty_cache()
 
 
+def ptxas_summary(report: dict, sources) -> list:
+    """Registers, spill bytes and static shared memory of every kernel
+    the named sources compiled, read from nvcc's ``-Xptxas -v`` log
+    (dynamic shared memory is set at launch: see the sources)."""
+    import re
+    import shutil
+
+    demangle = shutil.which("c++filt")
+    out, cur = [], None
+    for src in sources:
+        for ln in report.get(src, {}).get("log", "").splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name = m.group(1)
+                if demangle:
+                    name = subprocess.run([demangle, name], text=True,
+                                          capture_output=True).stdout
+                    name = name.replace("(anonymous namespace)::", "")
+                    name = name.strip().split("(")[0].removeprefix("void ")
+                cur = {"source": src, "kernel": name}
+                out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"] = int(m.group(1))
+                cur["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", ln)
+                cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row):
     """One entry of the kernels line from a phase's path row."""
     return {"name": name, "route": "cuda", "source": source,
@@ -1094,9 +1201,16 @@ def main() -> None:
          sources=_build.sources(),
          ptxas={k: [ln for ln in v["log"].splitlines() if "ptxas" in ln]
                 for k, v in report.items()})
+    emit("ptxas", kernels=ptxas_summary(
+        report, ["flash_attention", "decode_attention"]))
 
     rows = phase_group_mean(torch, gm, ref)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    # what the timing method reads for one near-empty kernel: the floor
+    # under every small kernel's time below
+    tiny = torch.zeros(8, device="cuda")
+    emit("launch_floor", what="one 8-element add, as device_ms times it",
+         ms=device_ms(torch, lambda: tiny.add_(1), flush=flush))
     flash_rows = phase_flash(torch, flush)
     paged_rows = phase_paged(torch, flush)
     decode_rows = phase_decode(torch, flush)

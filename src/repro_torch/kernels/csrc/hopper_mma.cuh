@@ -1,0 +1,131 @@
+// Building blocks of the bf16 attention kernels (flash_attention.cu,
+// decode_attention.cu) for Hopper (sm_90a):
+// 16-byte asynchronous copies into shared memory (cp.async), ldmatrix
+// fragment loads and the bf16 tensor-core product
+// mma.sync.m16n8k16.row.col with f32 accumulators.
+//
+// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
+//   A 16x16 (row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                        a3 (g+8, 2t+8..), two bf16 per register;
+//   B 16x8  (k x n):     b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
+//   C 16x8  f32:         c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1).
+// So a row of C lives in the four lanes of a quad: a row max or sum is
+// two xor-shuffles, and a C tile of scores becomes the A operand of the
+// next product in registers (pack_bf16x2), with no trip through shared
+// memory.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace hop {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes 0 writes zeros
+// (the source is then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed (B fragments of a row-major [k][n]).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a * b on the tensor cores (bf16 in, f32 accumulate).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// *p += v at gpu scope with acquire-release order: what this thread (and,
+// after a barrier, its block) stored before is visible to whoever sees
+// the new count, and what it loads after sees what they stored.
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// Host side: raise `Kernel`'s dynamic shared-memory limit to `bytes`, once per
+// device.
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// Shared-memory row stride, in bf16, of a tile whose head dim is padded
+// to kd k-steps of 16: 8 bf16 (16 bytes) of padding put the 8 rows an
+// ldmatrix reads in 8 distinct 16-byte bank groups for every padded
+// width used here (32, 64, 80, 128).
+__host__ __device__ constexpr int row_stride(int kd) {
+  return 16 * kd + 8;
+}
+
+}  // namespace hop

@@ -1,5 +1,6 @@
-// One tile step of the flash (online-softmax) recurrence, shared by
-// flash_attention.cu and decode_attention.cu.
+// One tile step of the flash (online-softmax) recurrence in f32 on the
+// f32 cores, shared by the f32 entries of flash_attention.cu and
+// decode_attention.cu (their bf16 entries use hopper_mma.cuh).
 //
 // A warp owns R query rows. For a tile of kTile (= 32) key/value rows
 // staged in shared memory, lane j scores key row j against each of the R
@@ -14,7 +15,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 namespace attn {
 
@@ -27,15 +27,6 @@ constexpr int kKStride = kMaxD + 4;   // padded key row: float4 reads by 32
 constexpr int kVStride = kMaxD;       // value rows: lanes read neighbours
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll

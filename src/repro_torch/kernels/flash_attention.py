@@ -5,10 +5,12 @@ Every prefill runs it once per layer on q [b, s, h, d] and k, v [b,
 skv, kvh, d]. The kernel (``csrc/flash_attention.cu``) keeps the online
 softmax state (acc, m, l) in f32 registers, walks the kv tiles up to the
 causal diagonal and returns o in q's dtype and lse [b, h, s] in f32 (the
-pair the JAX package's ``attention_flash._flash_fwd_impl`` returns). It
-replaces the Pallas TPU kernel ``flash_attention_fwd`` of the JAX
-package's ``repro/kernels/flash_attention.py``; the source's header
-gives its bound and design.
+pair the JAX package's ``attention_flash._flash_fwd_impl`` returns). In
+bf16 both products run on the tensor cores (``mma.sync``) from bf16
+tiles that ``cp.async`` fills one tile ahead; in f32 they stay f32 FMAs
+(no TF32). It replaces the Pallas TPU kernel ``flash_attention_fwd`` of
+the JAX package's ``repro/kernels/flash_attention.py``; the source's
+header gives its bound and design.
 
 :func:`flash_attention_fwd` dispatches on where the tensors lie: CPU
 tensors go to the plain :func:`~repro_torch.kernels.ref.
@@ -32,6 +34,19 @@ launches = 0
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 MAX_HEAD_DIM = 128
+#: the head dim must be a multiple of this: 16-byte rows of the dtype
+#: (bf16 rows are copied with ``cp.async`` in 16-byte pieces)
+HEAD_DIM_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
+ALIGN = 16              # bytes, every data pointer
+
+
+def check_aligned(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary (a
+    view with a storage offset may not)."""
+    if any(t.data_ptr() % ALIGN for t in tensors):
+        raise ValueError(f"{kernel} kernel needs {ALIGN}-byte aligned "
+                         f"inputs; got data pointers at offsets "
+                         f"{[t.data_ptr() % ALIGN for t in tensors]}")
 
 
 def _fn(dtype: torch.dtype):
@@ -45,7 +60,7 @@ def _fn(dtype: torch.dtype):
 
 def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless the kernel takes (q, k, v) as they are, device aside:
-    dtypes, ranks, shapes and contiguity."""
+    dtypes, ranks, shapes, contiguity and 16-byte alignment."""
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32 or bfloat16 q, k, v of "
                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -60,11 +75,14 @@ def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"GQA grouping")
     if k.shape[1] == 0:
         raise ValueError("flash kernel needs at least one kv position")
-    if d % 4 != 0 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash kernel takes a head_dim that is a multiple "
-                         f"of 4 and at most {MAX_HEAD_DIM}; got {d}")
+    mult = HEAD_DIM_MULTIPLE[q.dtype]
+    if d % mult != 0 or d > MAX_HEAD_DIM:
+        raise ValueError(f"flash kernel takes a {q.dtype} head_dim that is "
+                         f"a multiple of {mult} and at most {MAX_HEAD_DIM}; "
+                         f"got {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel needs contiguous q, k and v")
+    check_aligned("flash", q, k, v)
 
 
 def validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

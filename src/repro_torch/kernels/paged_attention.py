@@ -6,8 +6,9 @@ a block-table row mapping its logical positions to pages
 (``serve/paged_cache.py``). Every decode step runs this once per layer:
 one query token per row against that row's pages, masked beyond
 ``lengths``. The kernel is the paged entry of ``csrc/decode_attention.cu``
-(the split-K recurrence of ``decode_attention.py``, each staged element
-looking up its page in the block table). It replaces the Pallas TPU
+(the split-K recurrence of ``decode_attention.py``, one launch per call,
+tensor cores in bf16; each page is looked up once in the block table per
+16-position sub-tile). It replaces the Pallas TPU
 kernel ``paged_decode_attention_fwd`` of the JAX package's
 ``repro/kernels/paged_attention.py``; the source's header gives its
 bound and design.
@@ -15,7 +16,7 @@ bound and design.
 :func:`paged_decode_attention_fwd` dispatches on where the tensors lie:
 CPU tensors go to the plain :func:`gather_dense_decode`; CUDA tensors
 launch the kernel or raise — there is no fallback. ``launches`` counts
-the kernel launches (one per call: the split pass and the combine pass).
+the kernel launches (one per call: the splits merge inside it).
 """
 from __future__ import annotations
 

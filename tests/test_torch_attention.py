@@ -16,6 +16,8 @@ Tolerances: f32 1e-5 (both sides sum in f32, in other orders); bf16
 both sides; the outputs round once more, and the Pallas kernel keeps
 its sums in bf16-fed f32 tiles).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +31,7 @@ from repro.kernels.paged_attention import (gather_dense_decode as
 from repro.kernels.paged_attention import paged_decode_attention_fwd
 from repro.models.attention_flash import _flash_fwd_impl
 
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -255,6 +258,70 @@ def test_layout_checks_accept_what_the_kernels_take(dtype):
                     torch.zeros(8, 36, **i32), torch.ones(8, **i32))
 
 
+def _config(arch, kind):
+    return get_config(arch) if kind == "full" else get_smoke_config(arch)
+
+
+#: every registered config (published and smoke) with a block that runs
+#: attention through the flash kernel in prefill and a cache in decode
+ATTN_CONFIGS = [(arch, kind) for arch in ARCH_IDS for kind in ("full", "smoke")
+                if {"attn", "moe", "shared_attn"}
+                & set(_config(arch, kind).block_pattern())]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,kind", ATTN_CONFIGS)
+def test_layout_checks_accept_every_config_head_shape(arch, kind, dtype):
+    """The head dim and GQA grouping of each config pass the flash, dense
+    decode and paged decode layout checks in both dtypes."""
+    cfg = _config(arch, kind)
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    z = dict(dtype=dtype)
+    i32 = dict(dtype=torch.int32)
+    fa.check_layout(torch.zeros(1, 24, h, d, **z),
+                    torch.zeros(1, 24, kvh, d, **z),
+                    torch.zeros(1, 24, kvh, d, **z))
+    da.check_layout(torch.zeros(2, h, d, **z), torch.zeros(2, 40, kvh, d, **z),
+                    torch.zeros(2, 40, kvh, d, **z), torch.ones(2, **i32))
+    pa.check_layout(torch.zeros(2, h, d, **z), torch.zeros(5, 16, kvh, d, **z),
+                    torch.zeros(5, 16, kvh, d, **z), torch.zeros(2, 2, **i32),
+                    torch.ones(2, **i32))
+
+
+def test_attention_configs_cover_the_served_head_shapes():
+    shapes = {(_config(a, k).head_dim,
+               _config(a, k).num_heads // _config(a, k).num_kv_heads)
+              for a, k in ATTN_CONFIGS}
+    assert {(128, 12), (80, 1), (32, 4)} <= shapes    # starcoder2, zamba2
+    assert ("xlstm-350m", "full") not in ATTN_CONFIGS  # no attention
+
+
+def _off_by_one(dtype, *shape):
+    """A contiguous view that starts one element into its storage, so its
+    data is not 16-byte aligned."""
+    return torch.zeros(math.prod(shape) + 1, dtype=dtype)[1:].view(*shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layouts_reject_a_view_off_16_byte_alignment(dtype):
+    z = dict(dtype=dtype)
+    q, kv = torch.zeros(1, 8, 4, 16, **z), torch.zeros(1, 8, 2, 16, **z)
+    for args in [(_off_by_one(dtype, 1, 8, 4, 16), kv, kv),
+                 (q, _off_by_one(dtype, 1, 8, 2, 16), kv),
+                 (q, kv, _off_by_one(dtype, 1, 8, 2, 16))]:
+        assert args[0].is_contiguous()
+        with pytest.raises(ValueError, match="aligned"):
+            fa.check_layout(*args)
+    q3, kc = torch.zeros(2, 4, 16, **z), torch.zeros(2, 8, 2, 16, **z)
+    lens = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="aligned"):
+        da.check_layout(_off_by_one(dtype, 2, 4, 16), kc, kc, lens)
+    pages = torch.zeros(5, 4, 2, 16, **z)
+    bt = torch.zeros(2, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="aligned"):
+        pa.check_layout(q3, _off_by_one(dtype, 5, 4, 2, 16), pages, bt, lens)
+
+
 def _flash_bad(case):
     q, kv = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16)
     return {
@@ -267,6 +334,9 @@ def _flash_bad(case):
                      torch.zeros(1, 8, 2, 136)),
         "head_dim_odd": (torch.zeros(1, 8, 4, 6), torch.zeros(1, 8, 2, 6),
                          torch.zeros(1, 8, 2, 6)),
+        # bf16 rows are copied in 16-byte pieces: d % 8 == 0
+        "head_dim_bf16": tuple(torch.zeros(1, 8, n, 12, dtype=torch.bfloat16)
+                               for n in (4, 2, 2)),
         "strided": (torch.zeros(1, 4, 8, 16).transpose(1, 2), kv, kv),
         "empty_kv": (q, torch.zeros(1, 0, 2, 16), torch.zeros(1, 0, 2, 16)),
     }[case]
@@ -274,7 +344,7 @@ def _flash_bad(case):
 
 @pytest.mark.parametrize("case", ["f64", "mixed", "rank", "kv_shape",
                                   "groups", "head_dim", "head_dim_odd",
-                                  "strided", "empty_kv"])
+                                  "head_dim_bf16", "strided", "empty_kv"])
 def test_flash_layout_rejects_what_the_kernel_cannot_take(case):
     with pytest.raises((ValueError, TypeError)):
         fa.check_layout(*_flash_bad(case))
@@ -294,12 +364,17 @@ def _paged_bad(case):
         "table_strided": (q, pages, pages,
                           torch.zeros(3, 2, dtype=torch.int32).t(), lens),
         "pages_dtype": (q, pages.bfloat16(), pages.bfloat16(), bt, lens),
+        "head_dim_bf16": (torch.zeros(2, 8, 12, dtype=torch.bfloat16),
+                          torch.zeros(5, 4, 2, 12, dtype=torch.bfloat16),
+                          torch.zeros(5, 4, 2, 12, dtype=torch.bfloat16), bt,
+                          lens),
     }[case]
 
 
 @pytest.mark.parametrize("case", ["lens_i64", "table_i64", "table_rows",
                                   "lens_shape", "big_group",
-                                  "table_strided", "pages_dtype"])
+                                  "table_strided", "pages_dtype",
+                                  "head_dim_bf16"])
 def test_paged_layout_rejects_what_the_kernel_cannot_take(case):
     with pytest.raises((ValueError, TypeError)):
         pa.check_layout(*_paged_bad(case))
@@ -312,14 +387,19 @@ def test_dense_decode_layout_rejects_empty_and_mismatched_caches():
             da.check_layout(q, kc, kc, lens)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("positions,pairs,sms", [
     (576, 16, 132), (1000, 16, 132), (24, 4, 132), (32768, 1, 132),
     (1, 1, 132), (100, 1000, 132), (33, 2, 8)])
-def test_split_plan_covers_every_position(positions, pairs, sms):
-    chunk, nsplit = da.split_plan(positions, pairs, sms)
-    assert chunk % da.TILE == 0 and chunk > 0
+def test_split_plan_covers_every_position(positions, pairs, sms, dtype):
+    chunk, nsplit = da.split_plan(positions, pairs, sms, dtype)
+    tile, least, per_sm = da.PLAN[dtype]
+    assert chunk % tile == 0 and chunk >= least
+    # every position covered, and no empty trailing split
     assert chunk * nsplit >= positions > chunk * (nsplit - 1)
-    assert pairs * nsplit <= max(2 * sms, pairs)
+    # a bounded block count: about per_sm blocks per SM at most
+    assert 1 <= nsplit <= da.MAX_SPLITS
+    assert pairs * nsplit <= max(per_sm * sms + pairs - 1, pairs)
 
 
 def test_ops_keep_the_reference_shape_checks():
@@ -347,3 +427,20 @@ def test_attention_sources_build_with_their_shared_header():
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "online_softmax.cuh"' in src
         assert "sm_90a" in src or "Hopper" in src
+
+
+def test_bf16_paths_use_tensor_cores_and_async_copies():
+    """Both attention sources take their bf16 building blocks from the
+    shared header: mma.sync on the tensor cores, ldmatrix and cp.async;
+    the decode source has one kernel per call (no combine kernel)."""
+    header = (_build.CSRC / "hopper_mma.cuh").read_text()
+    for ptx in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                "cp.async.cg.shared.global", "ldmatrix.sync.aligned"):
+        assert ptx in header
+    for name, kernel in (("flash_attention", "flash_fwd_bf16_kernel"),
+                         ("decode_attention", "decode_split_bf16_kernel")):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "hopper_mma.cuh"' in src and kernel in src
+        assert "hop::mma_bf16" in src and "hop::cp_async16" in src
+    decode = (_build.CSRC / "decode_attention.cu").read_text()
+    assert "combine_kernel" not in decode and "atomicAdd" in decode
