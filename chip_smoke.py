@@ -12,7 +12,7 @@ Phases, each printing JSON lines:
                 src/repro_torch/kernels/csrc/, one process per source,
                 all started together; a ``ptxas`` line gives the
                 registers, spill bytes and static shared memory of each
-                flash and decode kernel.
+                flash, decode and SSD-scan kernel.
 3. group_mean — the CUDA kernel against its plain PyTorch version on the
                 card, at the main path's leaf shapes (G=9, M=3,
                 D in {98304, 128, 2560, 20}, f32), D=98304 in bf16, a
@@ -85,9 +85,11 @@ Phase 4 also runs the flash kernel at zamba2's shared-attention shape
 SSD-scan kernel against its plain sequential version at both families'
 prefill shapes (zamba2: 80 heads, dk=dv=64, B and C broadcast with a
 head stride of 0, Mamba's decay rates; xlstm: 4 heads, dk 512, dv 513),
-S=200 and S=1 with a nonzero h0, in f32 and bf16 (1e-4 and 2e-2
-relative to the largest |y| and |h|), with median times beside the
-bound.
+S=200 and S=1 with a nonzero h0, in f32 and bf16, and in bf16 one past
+a 64-step chunk (zamba2, S=65 and 129) and with v at an odd time stride
+(zamba2) or cut to dv 512 (xlstm), so every instantiation of the bf16
+kernel runs, within 1e-4 and 2e-2 relative to the largest |y| and |h|,
+with median times of the path rows (both types) beside the bound.
 
 Then the card's nvidia-smi line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero before the last line; so does a
@@ -734,7 +736,7 @@ def phase_serve(torch, smi):
 
 
 #: name stems of the port's own kernels in a profiler trace
-PORT_KERNELS = ("flash_fwd_", "decode_split_", "ssd_scan_kernel",
+PORT_KERNELS = ("flash_fwd_", "decode_split_", "ssd_scan_",
                 "group_mean_kernel")
 
 
@@ -865,6 +867,15 @@ def _ssd_inputs(torch, gen, arch, s, dtype, h0_scale):
     return q, k, v, log_a, h0
 
 
+def _relayout(torch, arch, v, h0):
+    """The bf16 kernel's other two v layouts: zamba2's v at an odd time
+    stride (65: element-wise loads, 32-column tiles) and xlstm's cut to
+    dv 512 (even strides: paired loads, 16-column tiles)."""
+    if arch == "zamba2":
+        return torch.cat([v, v[..., :1]], dim=-1)[..., :v.shape[-1]], h0
+    return v[..., :512].contiguous(), h0[..., :512].contiguous()
+
+
 def _storage_bytes(t) -> int:
     """Bytes a tensor's elements occupy, counting a broadcast (stride 0)
     axis once: what a call must read of it."""
@@ -875,15 +886,31 @@ def _storage_bytes(t) -> int:
     return n * t.element_size()
 
 
+def _worst_head_rel(torch, got, want):
+    """The largest error of any (batch, head) relative to that head's own
+    largest magnitude, and the flat index of that head. A head whose
+    reference is all zero must come out exactly zero."""
+    err = (got - want).abs().flatten(2).amax(-1).flatten()
+    peak = want.abs().flatten(2).amax(-1).flatten()
+    rel = torch.where(peak > 0, err / peak.clamp_min(1e-30),
+                      torch.where(err > 0, torch.inf, 0.0))
+    worst = int(rel.argmax())
+    return float(rel[worst]), worst
+
+
 def phase_ssd_scan(torch, flush):
     """The SSD-scan kernel against ``ssd_scan_ref`` (the sequential scan)
-    at both families' prefill shapes, S=200 (ragged) and S=1, with a
-    nonzero h0 in all but the path rows. y and h_final each within
-    1e-4 (f32) or 2e-2 (bf16) of the plain version, relative to its
-    largest magnitude: the kernel sums each chunk's products in another
-    order than the step-by-step scan, across 512 steps, and bf16 y
-    rounds once more. No single PyTorch call computes a gated linear
-    recurrence, so there is no library time."""
+    at both families' prefill shapes, S=200 (ragged) and S=1, and in
+    bf16 one past a 64-step chunk (zamba2, S=65 and 129) and with the
+    bf16 entry's other two v layouts (``_relayout``), with a nonzero h0
+    in all but the path rows. y and h_final each within 1e-4 (f32) or
+    2e-2 (bf16) of the plain version, relative to its largest magnitude,
+    over the whole tensor and in every (batch, head) on its own:
+    the kernel sums each chunk's products in another order than the
+    step-by-step scan, across 512 steps; the bf16 kernel rounds the
+    gated scores and w o v to bf16 and carries H's hi/lo split into
+    q . H, and bf16 y rounds once more. No single PyTorch call computes
+    a gated linear recurrence, so there is no library time."""
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import ssd_scan_ref
 
@@ -897,10 +924,17 @@ def phase_ssd_scan(torch, flush):
             ("path", "xlstm", s_path, torch.float32, 0.0),
             ("ragged", "zamba2", 200, torch.bfloat16, 0.5),
             ("ragged", "xlstm", 200, torch.float32, 0.5),
+            ("ragged", "xlstm", 200, torch.bfloat16, 0.5),
+            ("edge", "zamba2", 65, torch.bfloat16, 0.5),
+            ("edge", "zamba2", 129, torch.bfloat16, 0.5),
+            ("layout", "zamba2", 200, torch.bfloat16, 0.5),
+            ("layout", "xlstm", 200, torch.bfloat16, 0.5),
             ("s1", "zamba2", 1, torch.float32, 0.5),
             ("s1", "xlstm", 1, torch.bfloat16, 0.5)]:
         q, k, v, log_a, h0 = _ssd_inputs(torch, gen, arch, s, dtype,
                                          h0_scale)
+        if kind == "layout":
+            v, h0 = _relayout(torch, arch, v, h0)
         y, h = ss.ssd_scan_fwd(q, k, v, log_a, h0)
         y_ref, h_ref = ssd_scan_ref(q, k, v, log_a, h0)
         torch.cuda.synchronize()
@@ -920,6 +954,14 @@ def phase_ssd_scan(torch, flush):
               and h_err <= tol * max(h_max, 1e-30),
               f"ssd_scan {arch} S={s} {name}: y err {err} (max {y_max}), "
               f"h err {h_err} (max {h_max}) beyond {tol} relative")
+        # and each (batch, head) against its own largest magnitude, so a
+        # head of small values (zamba2's fast decays) is held as tightly
+        y_head, y_head_at = _worst_head_rel(torch, y.float(), y_ref.float())
+        h_head, h_head_at = _worst_head_rel(torch, h, h_ref)
+        check(y_head <= tol and h_head <= tol,
+              f"ssd_scan {arch} S={s} {name}: per-head relative error y "
+              f"{y_head} (head {y_head_at}), h {h_head} (head {h_head_at}) "
+              f"beyond {tol}")
         b, nh, _, dk = q.shape
         dv = v.shape[3]
         nbytes = (sum(_storage_bytes(t) for t in (q, k, v, log_a, h0))
@@ -934,10 +976,15 @@ def phase_ssd_scan(torch, flush):
                        q, k, v, log_a, h0), reps=5, flush=flush)
                    if timed else None,
                    None, bound, arch=arch, b=b, nh=nh, S=s, dk=dk, dv=dv,
-                   qk_head_stride=q.stride(1))
+                   qk_head_stride=q.stride(1), v_time_stride=v.stride(2))
         row.update(y_rel_err=err / max(y_max, 1e-30), h_max_abs_err=h_err,
                    h_rel_err=h_err / max(h_max, 1e-30), y_max_abs=y_max,
-                   h_max_abs=h_max, h0_scale=h0_scale, tol_is_relative=True)
+                   h_max_abs=h_max,
+                   y_ref_rms=float(y_ref.float().pow(2).mean().sqrt()),
+                   h_ref_rms=float(h_ref.pow(2).mean().sqrt()),
+                   y_head_rel_err=y_head, y_worst_head=y_head_at,
+                   h_head_rel_err=h_head, h_worst_head=h_head_at,
+                   h0_scale=h0_scale, tol_is_relative=True)
         rows.append(row)
         emit("ssd_scan", **row)
     return rows
@@ -1202,7 +1249,7 @@ def main() -> None:
          ptxas={k: [ln for ln in v["log"].splitlines() if "ptxas" in ln]
                 for k, v in report.items()})
     emit("ptxas", kernels=ptxas_summary(
-        report, ["flash_attention", "decode_attention"]))
+        report, ["flash_attention", "decode_attention", "ssd_scan"]))
 
     rows = phase_group_mean(torch, gm, ref)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")

@@ -1,6 +1,6 @@
-// Building blocks of the bf16 attention kernels (flash_attention.cu,
-// decode_attention.cu) for Hopper (sm_90a):
-// 16-byte asynchronous copies into shared memory (cp.async), ldmatrix
+// Building blocks of the bf16 kernels (flash_attention.cu,
+// decode_attention.cu, ssd_scan.cu) for Hopper (sm_90a):
+// asynchronous copies into shared memory (cp.async), ldmatrix
 // fragment loads and the bf16 tensor-core product
 // mma.sync.m16n8k16.row.col with f32 accumulators.
 //
@@ -35,6 +35,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes global -> shared, through L1 (a strided scalar); src_bytes 0
+// writes zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }

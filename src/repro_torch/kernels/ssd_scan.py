@@ -6,16 +6,30 @@ runs the gated linear recurrence
 
     H_t = exp(a_t) H_{t-1} + k_t^T v_t;     y_t = q_t . H_t
 
-once, over the whole prompt. The kernel (``csrc/ssd_scan.cu``) walks the
-chunks of one (batch, head, 32-column tile of H) inside a block, with the
-state tile in f32 shared memory, and returns y in v's dtype and h_final
-in f32. It replaces the Pallas TPU kernel ``ssd_scan_fwd`` of the JAX
-package's ``repro/kernels/ssd_scan.py``; the source's header gives its
-bound and design.
+once, over the whole prompt. The kernel (``csrc/ssd_scan.cu``) replaces
+the Pallas TPU kernel ``ssd_scan_fwd`` of the JAX package's
+``repro/kernels/ssd_scan.py`` and returns y in v's dtype and h_final in
+f32. Its bound is the bytes (~4.0 us at zamba2's prefill, ~5.0 us at
+xlstm's, on an H100); the source's header gives the numbers.
+
+bf16 (the serving path): one block of 4 warps per (batch, head, 32- or
+16-column tile of H) walks 64-step chunks. All four products run on the
+tensor cores (``mma.sync``, f32 accumulators): q k^T, the gated scores
+rounded to bf16 times v, q . H with H split into bf16 hi + lo, and the
+state update k^T (w o v) with w o v rounded to bf16 once. H stays f32 in
+shared memory. q and k stream in 64 x 64 pieces through a 3-stage
+``cp.async`` ring, so they must be 16-byte aligned with batch, head and
+time strides and dk that are multiples of 8, and dk <= 512 (H's tile,
+its hi/lo copy and the ring fill shared memory); v and y take any
+alignment (xlstm's dv = 513 puts odd rows at odd offsets), loaded a chunk
+ahead into registers. f32: the f32 cores, 32-step chunks, dk <= 1024
+and a multiple of 4.
 
 q, k, v and log_a go in with their own batch, head and time strides, so
 Mamba2's B and C, broadcast over the heads (a head stride of 0), are
 never copied; only a tensor whose last axis is not contiguous is.
+:func:`check_layout` states what each entry takes; every ssm and hybrid
+config's scan inputs pass it.
 
 :func:`ssd_scan_fwd` dispatches on where the tensors lie: CPU tensors go
 to the plain :func:`~repro_torch.kernels.ref.ssd_scan_ref`; CUDA tensors
@@ -36,7 +50,10 @@ from repro_torch.kernels.ref import ssd_scan_ref
 launches = 0
 
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
-MAX_DK = 1024
+#: largest dk each entry takes
+MAX_DK = {torch.float32: 1024, torch.bfloat16: 512}
+#: dk must be a multiple of this (bf16: 16-byte copies of q and k)
+DK_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def _fn(dtype: torch.dtype):
@@ -56,8 +73,10 @@ def _unit_last(x: torch.Tensor) -> torch.Tensor:
 def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  log_a: torch.Tensor, h0: torch.Tensor) -> None:
     """Raise unless the kernel takes (q, k, v, log_a, h0), device aside:
-    dtypes, ranks and shapes (any strides; the wrapper copies only a
-    tensor whose last axis is not contiguous)."""
+    dtypes, ranks, shapes, and for bf16 the 16-byte copies of q and k
+    (bases 16-byte aligned, batch, head and time strides multiples of 8
+    elements). Checked on the tensors as launched: the wrapper first
+    copies a tensor whose last axis is not contiguous."""
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 q, k, "
                         f"v of one dtype; got {q.dtype}, {k.dtype}, "
@@ -77,12 +96,24 @@ def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"ssd_scan kernel: v {tuple(v.shape)}, log_a "
                          f"{tuple(log_a.shape)} and h0 {tuple(h0.shape)} "
                          f"disagree with q {tuple(q.shape)}")
-    if dk % 4 != 0 or dk > MAX_DK:
-        raise ValueError(f"ssd_scan kernel takes a dk that is a multiple of "
-                         f"4 and at most {MAX_DK}; got {dk}")
+    mult, most = DK_MULTIPLE[q.dtype], MAX_DK[q.dtype]
+    if dk % mult != 0 or dk > most:
+        raise ValueError(f"ssd_scan kernel takes a {q.dtype} dk that is a "
+                         f"multiple of {mult} and at most {most}; got {dk}")
     if nh > 65535 or b > 65535:
         raise ValueError(f"ssd_scan kernel takes at most 65535 heads and "
                          f"batch rows; got {nh}, {b}")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k)):
+            if any(st % 8 for st in x.stride()[:3]):
+                raise ValueError(f"ssd_scan bf16 kernel copies {name} in "
+                                 f"16-byte pieces: its batch, head and "
+                                 f"time strides must be multiples of 8; "
+                                 f"got {x.stride()}")
+            if x.data_ptr() % 16:
+                raise ValueError(f"ssd_scan bf16 kernel copies {name} in "
+                                 f"16-byte pieces: its base must be "
+                                 f"16-byte aligned")
 
 
 def validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,8 +136,8 @@ def ssd_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ssd_scan_ref(q, k, v, log_a, h0)
     log_a, h0 = log_a.float(), h0.float().contiguous()
-    validate(q, k, v, log_a, h0)
     q, k, v = (_unit_last(x) for x in (q, k, v))
+    validate(q, k, v, log_a, h0)
     b, nh, s, dk = q.shape
     dv = v.shape[3]
     y = torch.empty((b, nh, s, dv), dtype=v.dtype, device=v.device)
