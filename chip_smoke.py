@@ -12,13 +12,30 @@ Phases, each printing JSON lines:
                 src/repro_torch/kernels/csrc/, one process per source,
                 all started together; a ``ptxas`` line gives the
                 registers, spill bytes and static shared memory of each
-                flash, decode and SSD-scan kernel.
-3. group_mean — the CUDA kernel against its plain PyTorch version on the
-                card, at the main path's leaf shapes (G=9, M=3,
-                D in {98304, 128, 2560, 20}, f32), D=98304 in bf16, a
-                ragged tail (D=1000) and D=1, each with a fully dropped
-                group; f32 within 2e-5, bf16 within 2e-2; median times
-                of 20 CUDA-event-timed calls beside the memory bound.
+                group-mean, flash, decode and SSD-scan kernel.
+3. group_mean — a launch_floor line first: one 8-element add timed as
+                every row below is, the floor under every small
+                kernel's time. Then the [G, M, D] entry against its
+                plain PyTorch version on the card, at the old
+                per-leaf shapes (G=9, M=3, D in {98304, 128, 2560, 20},
+                f32), D=98304 in bf16, a ragged tail (D=1000) and D=1,
+                each with a fully dropped group; f32 within 2e-5, bf16
+                within 2e-2; median times of 20 CUDA-event-timed calls,
+                L2 flushed before each, beside the memory bound.
+   group_mean_round — the round kernel, the main path's entry, through
+                ``_kernel_round`` against the round's plain version: the
+                quickstart's theta and momentum (N=27 on 3x3x3) in each
+                of the 3 rounds, N=26 on the same grid (virtual slots),
+                the same tree in bf16, and a tree of more than
+                MAX_LEAVES leaves mixing f32 and bf16 (odd widths, d=1,
+                offset views), each mask dropping one whole group. f32
+                within 2e-5 and bf16 within 2e-2, every leaf bit-equal
+                to the route the kernel replaced (gather by order, the
+                [G, M, D] entry, gather back), the dropped group kept
+                bit for bit, one launch per dtype batch. Times with L2
+                flushed: the kernel, that route, the plain version and
+                the kernel-off route (index_add_), beside the bound, and
+                the host time of a round.
 4. flash_attention, paged_decode, decode_attention — each attention
                 kernel against its plain version on the card, at the
                 serving path's shapes in bf16 and f32 plus ragged cases
@@ -35,21 +52,23 @@ Phases, each printing JSON lines:
                 PyTorch library call (SDPA) beside the bound, with L2
                 flushed before each; every row also gives bound_share
                 (bound / kernel time) and vs_library (kernel / library
-                time, null without a library call). A launch_floor line
-                times one 8-element add the same way: the floor under
-                every small kernel's time.
+                time, null without a library call). The launch_floor
+                (phase 3) is the floor under every small kernel's time.
 5. vision     — 16 peers on the vision task (the CNN), 3 iterations,
-                kernel on: finite loss, disagreement <= 1e-10.
+                kernel on: finite loss, disagreement <= 1e-10, 12
+                kernel launches (3 iterations x 4 rounds x 1 batch).
 6. federation — the quickstart config (27 peers, text task, MLP head
                 768->128->20, kernel on) for 20 iterations on the card:
                 accuracy >= 0.30, peer disagreement <= 1e-10, the ledger
                 exactly as the reference's (2,618,231,040 bytes,
-                0.89577216 simulated seconds), 480 kernel launches; then
+                0.89577216 simulated seconds), 60 kernel launches (one
+                per round: 20 x 3 rounds x 1 f32 batch); then
                 the same run with the kernel off must end within 1e-5.
 7. profile    — ten quickstart steps under ``torch.profiler``: host and
                 device time of each layer ``Federation.step`` labels
-                (transport, local update, aggregation), the device's
-                busy share, the kernels that fill it.
+                (transport, local update, aggregation), the
+                aggregation's kernel launches, the device's launches per
+                step and busy share, the kernels that fill it.
 8. serve      — the published starcoder2-3b (30 layers, d 3072, bf16,
                 flash attention, random weights from seed 0) at full
                 width through the continuous-batching engine: 16
@@ -138,14 +157,15 @@ def smi_line() -> str:
 
 
 def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
-              flush=None) -> float:
+              flush=None, spin: int = 2_000_000) -> float:
     """Median device time of ``reps`` calls of ``fn``. Before each, the
-    card spins for about a millisecond (``torch.cuda._sleep``) while the
-    host queues the start event, the call and the end event, so the
-    interval holds the call's kernels and not the host's Python. With
-    ``flush`` (a tensor larger than the L2 cache) it is overwritten
-    before each call, so the call finds its inputs in device memory as
-    the model's layers do."""
+    card spins for ``spin`` cycles, about a millisecond by default
+    (``torch.cuda._sleep``), while the host queues the start event, the
+    call and the end event, so the interval holds the call's kernels and
+    not the host's Python (a call that queues many launches needs a
+    longer spin). With ``flush`` (a tensor larger than the L2 cache) it
+    is overwritten before each call, so the call finds its inputs in
+    device memory as the model's layers do."""
     for _ in range(warmup):
         fn()
     times = []
@@ -154,7 +174,7 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
         end = torch.cuda.Event(enable_timing=True)
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -174,7 +194,7 @@ def group_mean_bound_ms(g: int, m: int, d: int, itemsize: int) -> dict:
             "ops_ms": flops / F32_FLOP_PER_S * 1e3}
 
 
-def phase_group_mean(torch, gm, ref):
+def phase_group_mean(torch, gm, ref, flush):
     cases = [("path", d, torch.float32) for d in MAIN_PATH_D] + [
         ("bf16", 98304, torch.bfloat16), ("tail", 1000, torch.float32),
         ("d1", 1, torch.float32)]
@@ -203,13 +223,195 @@ def phase_group_mean(torch, gm, ref):
                "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err, "tol": tol,
                "kernel_ms": device_ms(
-                   torch, lambda: gm.group_mean_fwd(x, mask)),
+                   torch, lambda: gm.group_mean_fwd(x, mask), flush=flush),
                "plain_ms": device_ms(
-                   torch, lambda: ref.group_mean_ref(x, mask)),
+                   torch, lambda: ref.group_mean_ref(x, mask), flush=flush),
                "bound_ms": max(bound.values()), **bound}
         row.update(shares(row["kernel_ms"], row["bound_ms"], None))
         rows.append(row)
         emit("group_mean", **row)
+    return rows
+
+
+# the quickstart's tree: theta and momentum of the MLP head 768->128->20
+MLP_SHAPES = {"fc1": {"w": (768, 128), "b": (128,)},
+              "fc2": {"w": (128, 20), "b": (20,)}}
+# leaf widths of the >MAX_LEAVES tree: vector and scalar paths, d = 1
+MIXED_D = (1, 3, 20, 128, 999, 1000, 2560, 4097)
+
+
+def group_mean_round_bound_ms(leaves, cap: int, m: int) -> dict:
+    """Least time for one MAR round over ``leaves`` ([n, ...] each), the
+    larger of two: every leaf read once and written once, the mask [n]
+    and the order [cap] read once, over HBM (``bytes_ms``); a
+    multiply-add per element read and a divide per group column over
+    the f32 rate (``ops_ms``). Virtual slots move nothing."""
+    n = leaves[0].shape[0]
+    nbytes = sum(2 * x.numel() * x.element_size() for x in leaves) \
+        + n * 4 + cap * 8
+    flops = sum(2 * x.numel() + cap // m * (x.numel() // max(n, 1))
+                for x in leaves)
+    return {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": flops / F32_FLOP_PER_S * 1e3}
+
+
+def _round_tree(torch, gen, kind: str, n: int):
+    """A tree of [n, ...] leaves on the card for one group_mean_round
+    row: the quickstart's theta and momentum (f32 or bf16), or more than
+    MAX_LEAVES leaves mixing f32 and bf16, with two offset views that
+    are not 16-byte aligned."""
+    from repro_torch.kernels.group_mean import MAX_LEAVES
+
+    def draw(shape, dtype=torch.float32, offset=0):
+        flat = torch.randn(n * math.prod(shape) + offset, generator=gen,
+                           device="cuda").to(dtype)
+        return flat[offset:].view((n,) + tuple(shape))
+
+    if kind in ("quickstart", "virtual", "bf16"):
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        return {k: {layer: {name: draw(shape, dtype)
+                            for name, shape in p.items()}
+                    for layer, p in MLP_SHAPES.items()}
+                for k in ("p", "m")}
+    f32 = {f"f{i:02d}": draw((MIXED_D[i % len(MIXED_D)],))
+           for i in range(MAX_LEAVES + 4)}
+    f32["f_offset"] = draw((1000,), offset=1)
+    bf16 = {f"h{i}": draw((d,), torch.bfloat16)
+            for i, d in enumerate((1, 20, 2560))}
+    bf16["h_offset"] = draw((2560,), torch.bfloat16, offset=3)
+    return {"f32": f32, "bf16": bf16}
+
+
+def _parent_route(torch, gm, x, order, inv, mask_g, n, cap, m):
+    """One leaf through the route the round kernel replaced: pad, gather
+    by order, the [G, M, D] entry, gather back by inv."""
+    xf = x.reshape(n, -1)
+    d = xf.shape[1]
+    if cap > n:
+        xf = torch.cat([xf, xf.new_zeros((cap - n, d))])
+    out = gm.group_mean_fwd(xf[order].reshape(cap // m, m, d), mask_g)
+    return out.reshape(cap, d)[inv][:n].reshape(x.shape)
+
+
+def phase_group_mean_round(torch, flush):
+    """The round kernel through ``_kernel_round`` (the main path's entry)
+    against the round's plain version, at the quickstart's tree (N=27 on
+    3x3x3, every round), N=26 on the same grid (virtual slots), the tree
+    in bf16, and a tree of more than MAX_LEAVES leaves mixing f32 and
+    bf16 (scalar and offset leaves too). Each mask drops one whole
+    group, which must keep its rows bit for bit; f32 and bf16 must be
+    bit-equal to the route the kernel replaced (gather, [G, M, D]
+    entry, scatter). Times with L2 flushed: the kernel, that route, the
+    plain version and the kernel-off route (``index_add_``)."""
+    from repro_torch.core import mar_allreduce as mar
+    from repro_torch.core.moshpit import GridPlan
+    from repro_torch.kernels import group_mean as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import group_mean_round_ref
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [("quickstart", 27, r) for r in range(3)] + \
+        [("virtual", 26, r) for r in range(3)] + \
+        [("bf16", 27, 0), ("mixed", 27, 1)]
+    rows = []
+    for kind, n, rnd in cases:
+        plan = GridPlan(n, (3, 3, 3))
+        cap, m = plan.capacity, plan.dims[rnd]
+        state = _round_tree(torch, gen, kind, n)
+        leaves = tree_leaves(state)
+        _, order, inv = mar._round_index(plan, rnd, torch.device("cuda"))
+        mask = (torch.rand(n, generator=gen, device="cuda") < 0.7).float()
+        # drop the whole group of the last slot (a virtual one at N=26)
+        slots = order.tolist()
+        g_drop = slots.index(cap - 1) // m
+        drop_slots = slots[g_drop * m:(g_drop + 1) * m]
+        drop = [p for p in drop_slots if p < n]
+        mask[drop] = 0.0
+        keep = [p for p in range(n) if p not in drop_slots]
+        mask[keep[0]] = 1.0
+        mask_g = torch.cat([mask, mask.new_zeros(cap - n)])[order] \
+            .reshape(cap // m, m)
+
+        ops.reset_launch_counts()
+        out = tree_leaves(mar._kernel_round(state, plan, rnd, mask))
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["group_mean"]
+        flat = [x.reshape(n, -1) for x in leaves]
+        want = [None] * len(flat)
+        for idx in gm.batches(flat):
+            for i, y in zip(idx, group_mean_round_ref(
+                    [flat[i] for i in idx], order, mask, m)):
+                want[i] = y.reshape(leaves[i].shape)
+        parent = [_parent_route(torch, gm, x, order, inv, mask_g, n, cap, m)
+                  for x in leaves]
+        torch.cuda.synchronize()
+        err, tol = 0.0, 0.0
+        for x, y, w, pr in zip(leaves, out, want, parent):
+            t = _tol(torch, x.dtype)
+            tol = max(tol, t)
+            e = float((y.float() - w.float()).abs().max())
+            err = max(err, e)
+            check(y.dtype == x.dtype and y.shape == x.shape
+                  and bool(torch.isfinite(y).all()),
+                  f"group_mean_round {kind} r{rnd}: bad output {y.dtype} "
+                  f"{tuple(y.shape)}")
+            check(e <= t, f"group_mean_round {kind} r{rnd} {x.dtype}: max "
+                          f"abs err {e} > {t}")
+            check(torch.equal(y, pr), f"group_mean_round {kind} r{rnd} "
+                                      f"{x.dtype}: not bit-equal to the "
+                                      f"gather / [G, M, D] / scatter route")
+            check(torch.equal(y[drop], x[drop]),
+                  f"group_mean_round {kind} r{rnd}: dropped group changed")
+        want_launches = len(gm.batches(flat))
+        check(launches == want_launches,
+              f"group_mean_round {kind} r{rnd}: {launches} launches, "
+              f"expected {want_launches}")
+
+        def kernel():
+            return mar._kernel_round(state, plan, rnd, mask)
+
+        def parent_route():
+            return [_parent_route(torch, gm, x, order, inv, mask_g, n, cap,
+                                  m) for x in leaves]
+
+        def plain():
+            return [group_mean_round_ref([flat[i] for i in idx], order,
+                                         mask, m)
+                    for idx in gm.batches(flat)]
+
+        def kernel_off():
+            return mar.mar_round_sim(state, plan, rnd, mask)
+
+        host_us = {}
+        for name, fn in (("kernel", kernel), ("parent_route", parent_route)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            host_us[name] = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+        spin = 20_000_000        # ~12 ms: the multi-launch routes' host
+        bound = group_mean_round_bound_ms(leaves, cap, m)
+        row = {"kind": kind, "n": n, "grid": list(plan.dims), "round": rnd,
+               "leaves": len(leaves), "launches": launches,
+               "dtypes": sorted({str(x.dtype).replace("torch.", "")
+                                 for x in leaves}),
+               "dropped_peers": drop, "max_abs_err": err, "tol": tol,
+               "bit_equal_to_parent_route": True,
+               "kernel_ms": device_ms(torch, kernel, flush=flush),
+               "parent_route_ms": device_ms(torch, parent_route,
+                                            flush=flush, spin=spin),
+               "plain_ms": device_ms(torch, plain, flush=flush, spin=spin),
+               "kernel_off_ms": device_ms(torch, kernel_off, flush=flush,
+                                          spin=spin),
+               "library_ms": None,
+               "host_us_per_round": host_us["kernel"],
+               "parent_route_host_us_per_round": host_us["parent_route"],
+               "bound_ms": max(bound.values()), **bound}
+        row.update(shares(row["kernel_ms"], row["bound_ms"], None))
+        rows.append(row)
+        emit("group_mean_round", **row)
     return rows
 
 
@@ -232,14 +434,17 @@ def run_quickstart(torch, Federation, cfg, ops, iterations: int = 20):
 def phase_federation(torch, smi):
     from repro_torch.core.federation import Federation
     from repro_torch.kernels import ops
+    from repro_torch.kernels.group_mean import batches
     from repro_torch.quickstart import quickstart_config
     from repro_torch.tree import tree_leaves
 
     cfg = quickstart_config(kernel_group_mean=True)
     fed, state, accs, step_s, launches = run_quickstart(
         torch, Federation, cfg, ops)
-    n_leaves = 2 * len(tree_leaves(state.params))        # theta and m
-    want_launches = 20 * fed.plan.depth * n_leaves
+    # one launch per round for each dtype batch of theta and m's leaves
+    per_round = len(batches(tree_leaves({"p": state.params,
+                                         "m": state.momentum})))
+    want_launches = 20 * fed.plan.depth * per_round
     dis = fed.peer_disagreement(state)
     out = {"n_peers": cfg.n_peers, "grid": list(fed.plan.dims),
            "accuracy_every_5": accs, "disagreement": dis,
@@ -249,8 +454,8 @@ def phase_federation(torch, smi):
            "ms_per_iteration": statistics.median(step_s[1:]) * 1e3,
            "card": smi}
     emit("federation", **out)
-    check(want_launches == 480, f"expected 480 launches, plan gives "
-                                f"{want_launches}")
+    check(want_launches == 60, f"expected 60 launches, plan gives "
+                               f"{want_launches}")
     check(launches == want_launches,
           f"group_mean launched {launches} times on the main path, "
           f"expected {want_launches}")
@@ -278,6 +483,7 @@ def phase_vision(torch):
 
     from repro_torch.core.federation import Federation, FederationConfig
     from repro_torch.kernels import ops
+    from repro_torch.kernels.group_mean import batches
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = FederationConfig(n_peers=16, technique="mar", task="vision",
@@ -293,7 +499,8 @@ def phase_vision(torch):
         logits = fed.apply_fn(p0, fed.test["x"].unsqueeze(0))[0]
         loss = float(F.cross_entropy(logits, fed.test["y"]))
     dis = fed.peer_disagreement(state)
-    want = 3 * fed.plan.depth * 2 * len(tree_leaves(state.params))
+    want = 3 * fed.plan.depth * len(batches(tree_leaves(
+        {"p": state.params, "m": state.momentum})))
     emit("vision", n_peers=16, grid=list(fed.plan.dims), test_loss=loss,
          accuracy=fed.evaluate(state), disagreement=dis, launches=launches,
          expected_launches=want)
@@ -301,19 +508,25 @@ def phase_vision(torch):
     check(all(bool(torch.isfinite(x).all())
               for x in tree_leaves(state.params)), "vision params not finite")
     check(dis <= 1e-10, f"vision disagreement {dis} > 1e-10")
+    check(want == 12, f"expected 12 vision launches, plan gives {want}")
     check(launches == want, f"vision launches {launches} != {want}")
 
 
-def phase_profile(torch):
+def profile_quickstart(torch, steps: int = 10) -> dict:
     """Where a kernel-on quickstart step's time goes.
 
-    Ten ``Federation.step`` calls under ``torch.profiler``. The step's
-    own labels (transport, local update, aggregation) give each layer's
-    host time and the device time of the kernels it launched; the
-    kernels give the device's busy share of the wall time. The profiler
-    slows the host, so these times are shares, not the step's speed
-    (that is the federation phase's). ``label_us`` is what one label
-    costs with no profiler running, as every plain step pays it.
+    ``steps`` ``Federation.step`` calls under ``torch.profiler``. The
+    step's own labels (transport, local update, aggregation) give each
+    layer's host time, its kernel launches (the runtime's launch calls
+    inside the label) and the device time of the work those calls and
+    its copies queued (matched to the device events by correlation id,
+    so kernels launched through ctypes count too); the kernels give the
+    device's busy share of the wall time and the launches per step. The
+    profiler slows the host, so these times are shares, not the step's
+    speed (that is :func:`run_quickstart`'s). ``label_us`` is what one
+    label costs with no profiler running, as every plain step pays it.
+    Uses only what every version of the port has, so it can profile
+    another checkout's package too.
     """
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -327,7 +540,6 @@ def phase_profile(torch):
     for _ in range(3):
         state = fed.step(state)
     torch.cuda.synchronize()
-    steps = 10
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -340,20 +552,36 @@ def phase_profile(torch):
     cuda = torch.autograd.DeviceType.CUDA
     names = {SPAN_TRANSPORT: "transport", SPAN_LOCAL_UPDATE: "local_update",
              SPAN_AGGREGATE: "aggregate"}
-    spans = {v: {"host_ms": 0.0, "device_ms": 0.0, "count": 0}
-             for v in names.values()}
+    spans = {v: {"host_ms": 0.0, "device_ms": 0.0, "launches": 0.0,
+                 "count": 0} for v in names.values()}
     kernels: dict = {}
+    ranges, runtime, device = [], [], []
     for e in prof.events():
-        if e.name in names:
+        if e.name in names:         # the labels, on the CPU and the GPU
             if e.device_type == cpu:
                 s = spans[names[e.name]]
                 s["host_ms"] += e.time_range.elapsed_us() / steps / 1e3
-                s["device_ms"] += e.device_time_total / steps / 1e3
                 s["count"] += 1
+                ranges.append((e.time_range.start, e.time_range.end, s))
         elif e.device_type == cuda:
             k = kernels.setdefault(e.name[:60], [0, 0.0])
             k[0] += 1
             k[1] += e.self_device_time_total
+            device.append(e)
+        elif any(w in e.name for w in ("LaunchKernel", "Memcpy", "Memset")):
+            runtime.append(e)
+    issued = {}                 # correlation id -> the label that issued it
+    for e in runtime:
+        t = e.time_range.start
+        for a, b, s in ranges:
+            if a <= t <= b:
+                issued[e.id] = s
+                s["launches"] += ("LaunchKernel" in e.name) / steps
+                break
+    for e in device:
+        if e.id in issued:
+            us = e.self_device_time_total
+            issued[e.id]["device_ms"] += us / steps / 1e3
     for v, s in spans.items():
         check(s["count"] == steps, f"profile: label {v} seen {s['count']} "
                                    f"times in {steps} steps")
@@ -368,15 +596,26 @@ def phase_profile(torch):
     label_us = (time.perf_counter() - t0) / n * 1e6
 
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
-    emit("profile", steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
-         spans_per_step={v: {"host_ms": s["host_ms"],
-                             "device_ms": s["device_ms"]}
-                         for v, s in spans.items()},
-         device_busy_ms_per_step=busy_us / steps / 1e3,
-         device_busy_share=busy_us / wall_us, label_us=label_us,
-         top_kernels_per_step=[{"name": k, "launches": c / steps,
-                                "device_us": us / steps}
-                               for k, (c, us) in top])
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "spans_per_step": {v: {"host_ms": s["host_ms"],
+                                   "device_ms": s["device_ms"],
+                                   "launches": s["launches"]}
+                               for v, s in spans.items()},
+            "device_launches_per_step":
+                sum(c for c, _ in kernels.values()) / steps,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "labelled_share_of_busy": sum(s["device_ms"] for s in
+                                          spans.values()) * steps * 1e3
+                                      / busy_us,
+            "label_us": label_us,
+            "top_kernels_per_step": [{"name": k, "launches": c / steps,
+                                      "device_us": us / steps}
+                                     for k, (c, us) in top]}
+
+
+def phase_profile(torch):
+    emit("profile", **profile_quickstart(torch))
 
 
 # ---------------------------------------------------------------------------
@@ -737,7 +976,7 @@ def phase_serve(torch, smi):
 
 #: name stems of the port's own kernels in a profiler trace
 PORT_KERNELS = ("flash_fwd_", "decode_split_", "ssd_scan_",
-                "group_mean_kernel")
+                "group_mean_")
 
 
 def _device_profile(torch, prof, wall_us: float, steps: int,
@@ -1249,15 +1488,17 @@ def main() -> None:
          ptxas={k: [ln for ln in v["log"].splitlines() if "ptxas" in ln]
                 for k, v in report.items()})
     emit("ptxas", kernels=ptxas_summary(
-        report, ["flash_attention", "decode_attention", "ssd_scan"]))
+        report, ["group_mean", "flash_attention", "decode_attention",
+                 "ssd_scan"]))
 
-    rows = phase_group_mean(torch, gm, ref)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     # what the timing method reads for one near-empty kernel: the floor
     # under every small kernel's time below
     tiny = torch.zeros(8, device="cuda")
     emit("launch_floor", what="one 8-element add, as device_ms times it",
          ms=device_ms(torch, lambda: tiny.add_(1), flush=flush))
+    phase_group_mean(torch, gm, ref, flush)
+    round_rows = phase_group_mean_round(torch, flush)
     flash_rows = phase_flash(torch, flush)
     paged_rows = phase_paged(torch, flush)
     decode_rows = phase_decode(torch, flush)
@@ -1271,25 +1512,21 @@ def main() -> None:
     recurrent_launches = phase_serve_recurrent(torch, smi)
     phase_recurrent_parity(torch)
 
-    # group_mean: one call at each main-path leaf shape (G=9, M=3, the
-    # four D, f32), times and bounds summed over the four; the attention
-    # kernels: their first (bf16, serving-path) row; ssd_scan: its first
-    # (zamba2, bf16) row. Launches: each path's count, read right after
-    # it ran, summed over the paths a kernel lies on (flash: starcoder2
-    # serving and zamba2's prefills)
-    path = [r for r in rows if r["kind"] == "path"]
-    print(json.dumps({"kernels": [{
-        "name": "group_mean", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/group_mean.cu",
-        "replaces": "src/repro/kernels/group_mean.py:34",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in path),
-        "ms": sum(r["kernel_ms"] for r in path),
-        "plain_ms": sum(r["plain_ms"] for r in path),
-        "bound_ms": sum(r["bound_ms"] for r in path),
-        "bound_by": ("bytes" if sum(r["bytes_ms"] for r in path)
-                     >= sum(r["ops_ms"] for r in path) else "operations"),
-        "library_ms": None},
+    # group_mean: the round row of the main path (the quickstart's theta
+    # and m, N=27, round 0, one launch), its error the largest over the
+    # three rounds; the attention kernels: their first (bf16,
+    # serving-path) row; ssd_scan: its first (zamba2, bf16) row.
+    # Launches: each path's count, read right after it ran, summed over
+    # the paths a kernel lies on (flash: starcoder2 serving and zamba2's
+    # prefills)
+    qs = [r for r in round_rows if r["kind"] == "quickstart"]
+    print(json.dumps({"kernels": [
+        {**kernel_entry("group_mean",
+                        "src/repro_torch/kernels/csrc/group_mean.cu",
+                        "src/repro/kernels/group_mean.py:34", launches,
+                        qs[0]),
+         "max_abs_err": max(r["max_abs_err"] for r in qs),
+         "row": "group_mean_round quickstart round 0"},
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:76",

@@ -19,7 +19,6 @@ own slice (ROADMAP.md, Queue 1 item 11).
 from __future__ import annotations
 
 import functools
-import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -84,27 +83,28 @@ def _kernel_round(state: Tree, plan: GridPlan, rnd: int,
                   mask: torch.Tensor) -> Tree:
     """The group-mean kernel path for one MAR round.
 
-    Permutes peers into round-``rnd`` group order, flattens each leaf to
-    [G, M, D] tiles, and runs the fused masked-mean kernel
-    (``kernels/group_mean.py``). Virtual slots are zero rows with a zero
-    mask. The permutation lives on the device (``_round_index``) and
-    the mask is gathered once per round, not once per leaf.
+    Flattens each leaf to an ``[N, D]`` view and hands the leaves, the
+    round's slot order and the peer mask to the round kernel
+    (``kernels/group_mean.py``): one launch per dtype (and per
+    ``MAX_LEAVES`` leaves) reads each peer's row by the order and writes
+    each peer's row of a fresh output, so there is no padding, no
+    gathered copy and no mask gather here. The order lives on the device
+    (``_round_index``).
     """
-    from repro_torch.kernels.ops import group_mean
+    from repro_torch.kernels import group_mean as gm
 
-    n, cap, m = plan.n_peers, plan.capacity, plan.dims[rnd]
-    g = cap // m
-    _, order, inv = _round_index(plan, rnd, mask.device)
-    mask_g = _pad(mask.float(), cap - n)[order].reshape(g, m)
-
-    def leaf(x):
-        tail = tuple(x.shape[1:])
-        d = max(1, math.prod(tail))
-        xf = _pad(x.reshape(n, d), cap - n)
-        out = group_mean(xf[order].reshape(g, m, d), mask_g)
-        return out.reshape(cap, d)[inv][:n].reshape((n,) + tail)
-
-    return tree_map(leaf, state)
+    n, m = plan.n_peers, plan.dims[rnd]
+    _, order, _ = _round_index(plan, rnd, mask.device)
+    mask = mask.float()
+    leaves = tree_leaves(state)
+    flat = [x.reshape(n, -1).contiguous() for x in leaves]
+    out = [None] * len(flat)
+    for idx in gm.batches(flat):
+        ys = gm.group_mean_round([flat[i] for i in idx], order, mask, m)
+        for i, y in zip(idx, ys):
+            out[i] = y.reshape(leaves[i].shape)
+    it = iter(out)
+    return tree_map(lambda _: next(it), state)
 
 
 def mar_round_sim(state: Tree, plan: GridPlan, rnd: int,

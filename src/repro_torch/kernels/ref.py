@@ -8,7 +8,7 @@ the matching functions in the JAX package's ``repro/kernels/ref.py``.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -25,6 +25,26 @@ def group_mean_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mean = num / den.clamp(min=1.0)
     out = torch.where(den > 0, mean, x.float())
     return out.expand(x.shape).to(x.dtype)
+
+
+def group_mean_round_ref(xs: Sequence[torch.Tensor], order: torch.Tensor,
+                         mask: torch.Tensor, m: int) -> List[torch.Tensor]:
+    """One MAR round over leaves ``xs`` (each ``[n, d]``), composed as the
+    reference's ``_kernel_round`` composes it: pad to ``cap = len(order)``
+    rows with zero rows of mask 0 (virtual slots), gather into group
+    order, :func:`group_mean_ref` over ``[cap/m, m, d]``, gather back by
+    the inverse order, drop the virtual rows."""
+    n, cap = mask.shape[0], order.shape[0]
+    inv = torch.argsort(order)
+    mf = mask.float()
+    mask_g = torch.cat([mf, mf.new_zeros(cap - n)])[order]
+    out = []
+    for x in xs:
+        xf = torch.cat([x, x.new_zeros((cap - n, x.shape[1]))])[order]
+        y = group_mean_ref(xf.reshape(cap // m, m, -1),
+                           mask_g.reshape(cap // m, m))
+        out.append(y.reshape(cap, -1)[inv][:n])
+    return out
 
 
 NEG_INF = -1e30

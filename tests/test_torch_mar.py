@@ -156,3 +156,70 @@ def test_wire_stages_raise(flag):
         aggregation.build_pipeline("mar", GridPlan(4, (2, 2)), **flag)
     with pytest.raises(ValueError):
         aggregation.make_aggregator("pigeon", GridPlan(4, (2, 2)))
+
+
+# ---------------------------------------------------------------------------
+# one MAR round through the round entry (its plain version on the CPU)
+# against the reference's Pallas route (interpret mode)
+# ---------------------------------------------------------------------------
+
+def _drop_group(mask, plan, rnd, slot):
+    """``mask`` with every real peer of the round-``rnd`` group holding
+    grid slot ``slot`` set to 0; returns (mask, those peers)."""
+    keys = plan.group_key(np.arange(plan.capacity), rnd)
+    peers = [p for p in np.flatnonzero(keys == keys[slot])
+             if p < plan.n_peers]
+    mask = mask.copy()
+    mask[peers] = 0.0
+    return mask, peers
+
+
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("n,dims,rnd", [
+    (27, (3, 3, 3), 0), (27, (3, 3, 3), 1), (27, (3, 3, 3), 2),
+    (12, (4, 4), 0), (12, (4, 4), 1),                  # virtual slots
+    (13, (2, 2, 2, 2), 0), (13, (2, 2, 2, 2), 1), (13, (2, 2, 2, 2), 2),
+    (13, (2, 2, 2, 2), 3)])
+def test_kernel_round_matches_reference_kernel_round(n, dims, rnd, drop):
+    """Leaves [N, 5, 3], [N] (d = 1) and [N, 7]; with ``drop`` one whole
+    group (the one holding the last slot, a virtual one on the padded
+    grids) is dropped and must keep its rows exactly."""
+    s, mask = _state(n, seed=7 * n + rnd), _mask(n, seed=n + rnd)
+    plan = GridPlan(n, dims)
+    peers = []
+    if drop:
+        mask, peers = _drop_group(mask, plan, rnd, plan.capacity - 1)
+    ref = ref_mar._kernel_round(_to_jax(s), RefGridPlan(n, dims), rnd,
+                                jnp.asarray(mask))
+    port = mar_allreduce._kernel_round(_to_torch(s), plan, rnd,
+                                       torch.from_numpy(mask))
+    _assert_close(port, ref)
+    for got, x in zip((port["p"], port["m"], port["w"]["b"]),
+                      (s["p"], s["m"], s["w"]["b"])):
+        np.testing.assert_array_equal(got.numpy()[peers], x[peers])
+
+
+@pytest.mark.parametrize("rnd", [0, 1, 2])
+def test_kernel_round_bf16_leaf_matches_reference(rnd):
+    """A bf16 leaf beside f32 ones (two launches on the card: one per
+    dtype); the dropped group keeps its bf16 rows bit for bit."""
+    n, dims = 27, (3, 3, 3)
+    rng = np.random.default_rng(20 + rnd)
+    h = rng.normal(size=(n, 40)).astype(np.float32)
+    f = rng.normal(size=(n, 6)).astype(np.float32)
+    plan = GridPlan(n, dims)
+    mask, peers = _drop_group(_mask(n, seed=rnd), plan, rnd, 0)
+    ref = ref_mar._kernel_round(
+        {"f": jnp.asarray(f), "h": jnp.asarray(h).astype(jnp.bfloat16)},
+        RefGridPlan(n, dims), rnd, jnp.asarray(mask))
+    h_t = torch.from_numpy(h).to(torch.bfloat16)
+    port = mar_allreduce._kernel_round(
+        {"f": torch.from_numpy(f), "h": h_t}, plan, rnd,
+        torch.from_numpy(mask))
+    assert port["h"].dtype == torch.bfloat16
+    np.testing.assert_allclose(port["f"].numpy(), np.asarray(ref["f"]),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(port["h"].float().numpy(),
+                               np.asarray(ref["h"], np.float32),
+                               atol=2e-2, rtol=0)
+    assert torch.equal(port["h"][peers], h_t[peers])
