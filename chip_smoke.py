@@ -64,11 +64,47 @@ Phases, each printing JSON lines:
                 0.89577216 simulated seconds), 60 kernel launches (one
                 per round: 20 x 3 rounds x 1 f32 batch); then
                 the same run with the kernel off must end within 1e-5.
+   federation_extensions — the same quickstart under each protocol
+                extension (``quickstart.EXTENSIONS``), kernel on, 20
+                iterations: Moshpit-KD (kd_iterations 6), DP at sigma
+                0.3, DP with the clipping indicator securely aggregated,
+                int8 error feedback, staleness-1 async, all of them
+                composed, and elastic membership (27 -> 13 peers at
+                iteration 7, -> 26 at 14, iid churn at 0.9
+                participation and 0.1 dropout). Each run's ledger
+                exactly the reference's (EXTENSION_REF, from
+                tools/reference_constants.py), one group-mean launch
+                per MAR round (60 a run, 67 for the elastic one: depths
+                3, 4 and 3), finite params, accuracy at iteration 20
+                inside the band the CPU tests state, the DP clip moved,
+                int8's bytes a quarter of the quickstart's, the elastic
+                run's fleet 27 -> 13 -> 26 with its survivors bit-exact
+                across each change and its joiners within 1e-6 of the
+                f32 mean; a kernel-off rerun of each, within 1e-5 for
+                async and elastic and printed for the others (a
+                quantization, a teacher ranking or DP's clipping
+                indicator can turn a 1e-7 difference into a step); and
+                one more run of each in which every aggregation is also
+                computed by the index_add_ route from the same input,
+                within 1e-5 of the kernel's. Each row gives
+                first_step_ms, ms_per_iteration and the card.
+   figures    — ``repro_torch.figures --smoke`` (Figs. 1-5, 8 peers, 6
+                iterations) on the card, the group mean in the kernel:
+                every row's comm_mb and sim_s equal the reference's
+                (FIGURE_ROWS), Fig. 5's divergence from FedAvg within
+                1e-5, the kernel launched, each run's ms per iteration.
+                Then Fig. 5's MAR (kernel and index_add_) and FedAvg
+                configs at N=125, two runs of 10 steps each: the kernel
+                route is exact from run to run; the others' run-to-run
+                differences are printed.
 7. profile    — ten quickstart steps under ``torch.profiler``: host and
                 device time of each layer ``Federation.step`` labels
                 (transport, local update, aggregation), the
                 aggregation's kernel launches, the device's launches per
-                step and busy share, the kernels that fill it.
+                step and busy share, the kernels that fill it; then the
+                same for the DP+secagg and MKD configs, the latter with
+                the MKD rounds' own label (three of its ten profiled
+                steps distill).
 8. serve      — the published starcoder2-3b (30 layers, d 3072, bf16,
                 flash attention, random weights from seed 0) at full
                 width through the continuous-batching engine: 16
@@ -96,8 +132,10 @@ Phases, each printing JSON lines:
                 kernel-path prefill logits within 1e-4 of the plain
                 path's, and equal greedy streams (a parting at a near
                 tie is printed with its top-2 logits).
-12. kernels   — one JSON object per kernel: launches on its main path,
-                max error, times, bound.
+12. kernels   — one JSON object per kernel: launches on its main path
+                (the group mean's: the federation run's 60, the
+                extension runs' 427 and the smoke figures'), max error,
+                times, bound.
 
 Phase 4 also runs the flash kernel at zamba2's shared-attention shape
 (s=512, h=kvh=32, d=80, bf16), and an ``ssd_scan`` phase holds the
@@ -131,7 +169,55 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 L2_FLUSH_BYTES = 256 << 20     # written before a timed call: > 50 MB L2
 QUICKSTART_BYTES = 2_618_231_040
 QUICKSTART_SIM_S = 0.89577216
+# The quickstart under each protocol extension (quickstart.EXTENSIONS),
+# 20 iterations: the reference's comm_bytes and sim_seconds at seed 0,
+# and the accuracy band at iteration 20, the reference's accuracy over
+# seeds 0-2 widened on each side by its spread plus 0.05 (torch's draws
+# are not jax's). All from the JAX package on the CPU, through
+# tools/reference_constants.py.
+EXTENSION_REF = {
+    "mkd": (3012209856, 1.0488752639999996,
+            (0.4314, 0.6076)),   # seeds 0-2: 0.5186, 0.5322, 0.5068
+    "dp": (2618231040, 0.8957721599999997,
+           (0.117, 0.2492)),     # seeds 0-2: 0.1885, 0.1807, 0.1777
+    "dp_secagg": (2618231040, 0.8957721599999997,
+                  (0.117, 0.2492)),  # seeds 0-2: 0.1885, 0.1807, 0.1777
+    "int8_ef": (654557760, 0.31394303999999995,
+                (0.3279, 0.5305)),   # seeds 0-2: 0.418, 0.4463, 0.4121
+    "async": (2618231040, 0.8957721599999997,
+              (0.159, 0.4553)),      # seeds 0-2: 0.3398, 0.334, 0.2744
+    "composed": (1048536576, 0.467046144,
+                 (0.0633, 0.2014)),  # seeds 0-2: 0.126, 0.1387, 0.1289
+    "elastic": (1215376384, 0.8112654079999999,
+                (0.2693, 0.5305)),   # seeds 0-2: 0.4268, 0.373, 0.4082
+}
+# repro_torch.figures --smoke: each row's comm_mb and sim_s as the
+# reference's figure scripts print them at that scale, seed 0 (None: the
+# row has no such field); same source
+FIGURE_ROWS = (
+    ("fig1_train", "77.6", "0.09"), ("fig1_train", "116.4", "0.191"),
+    ("fig1_train", "116.4", "0.152"), ("fig1_train", "116.4", "0.152"),
+    ("fig1_train", "271.5", "0.356"), ("fig1_train", "271.5", "0.284"),
+    ("fig2_mkd", "116.4", None), ("fig2_mkd", "174.7", None),
+    ("fig2_mkd", "174.7", None),
+    ("fig3_churn", "46.9", None), ("fig3_churn", "72.7", None),
+    ("fig3_churn", "56.6", None), ("fig3_churn", "72.7", None),
+    ("fig3_churn", "59.8", None),
+    ("fig4_dp", "116.4", None), ("fig4_dp", "116.4", None),
+    ("fig4_dp", "116.4", None), ("fig4_dp", "116.4", None),
+    ("fig5_parity", None, None), ("fig5_parity", None, None),
+    ("fig5_parity", None, None), ("fig5_parity", None, None),
+    ("fig5_divergence", None, None), ("fig5_divergence", None, None),
+    ("fig5_divergence", None, None),
+)
 MAIN_PATH_D = (98304, 128, 2560, 20)    # fc1.w, fc1.b, fc2.w, fc2.b
+# the extension runs whose kernel-off rerun must end within 1e-5. The
+# others turn a 1e-7 difference into a step: int8 EF into a quantum, MKD
+# into a teacher swap, DP into a flipped clipping indicator (the clip
+# tracks a quantile of the peers' delta norms, so a norm sits within
+# 1e-4 of it); theirs is printed, and every run's kernel is held against
+# the index_add_ route on the same inputs in every aggregation instead
+KERNEL_OFF_GATED = ("async", "elastic")
 
 
 def emit(phase: str, **fields) -> None:
@@ -320,7 +406,8 @@ def phase_group_mean_round(torch, flush):
         cap, m = plan.capacity, plan.dims[rnd]
         state = _round_tree(torch, gen, kind, n)
         leaves = tree_leaves(state)
-        _, order, inv = mar._round_index(plan, rnd, torch.device("cuda"))
+        ri = mar.round_index(plan, rnd, torch.device("cuda"))
+        order, inv = ri.order, ri.inv
         mask = (torch.rand(n, generator=gen, device="cuda") < 0.7).float()
         # drop the whole group of the last slot (a virtual one at N=26)
         slots = order.tolist()
@@ -512,12 +599,269 @@ def phase_vision(torch):
     check(launches == want, f"vision launches {launches} != {want}")
 
 
-def profile_quickstart(torch, steps: int = 10) -> dict:
+def _run_extension(torch, cfg, ops, iterations: int = 20) -> dict:
+    """``iterations`` steps of one config on the card: ms per step, the
+    group-mean launches, the grid depth and fleet size of every step,
+    accuracy at iteration 20, and every membership change the federation
+    applied, with the state just before and just after it."""
+    from repro_torch.core.federation import Federation
+
+    fed = Federation(cfg)           # the default device: cuda
+    changes = []
+    apply = fed.apply_membership
+
+    def spy(state, change):         # observe the membership entry point
+        out = apply(state, change)
+        changes.append((change, state, out))
+        return out
+
+    fed.apply_membership = spy
+    state = fed.init_state()
+    clip0 = float(state.dp["clip"]) if state.dp else None
+    step_s, depths, sizes = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(iterations):
+        t0 = time.perf_counter()
+        state = fed.step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        depths.append(fed.plan.depth)
+        sizes.append(fed.cfg.n_peers)
+    launches = ops.launch_counts()["group_mean"]
+    return {"fed": fed, "state": state, "step_s": step_s, "depths": depths,
+            "sizes": sizes, "launches": launches, "changes": changes,
+            "accuracy": fed.evaluate(state), "clip0": clip0}
+
+
+def _kernel_vs_plain_every_aggregation(torch, cfg, iterations: int = 20
+                                       ) -> float:
+    """One more run of ``cfg`` on the card in which every MAR
+    aggregation is computed twice from the same input, by the kernel and
+    by the ``index_add_`` route; the run goes on with the kernel's
+    result. Returns the largest difference over every leaf (DP's
+    indicator and smoothed deltas included) of every aggregation."""
+    from repro_torch.core import mar_allreduce as mar
+    from repro_torch.core.federation import Federation
+    from repro_torch.tree import tree_leaves
+
+    worst = [0.0]
+    route = mar.mar_aggregate_sim
+
+    def both(state, plan, mask=None, num_rounds=None, use_kernel=False):
+        out = route(state, plan, mask, num_rounds=num_rounds,
+                    use_kernel=use_kernel)
+        plain = route(state, plan, mask, num_rounds=num_rounds,
+                      use_kernel=False)
+        worst[0] = max([worst[0]] + [
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(tree_leaves(out), tree_leaves(plain))])
+        return out
+
+    mar.mar_aggregate_sim = both
+    try:
+        fed = Federation(cfg)
+        state = fed.init_state()
+        for _ in range(iterations):
+            state = fed.step(state)
+    finally:
+        mar.mar_aggregate_sim = route
+    return worst[0]
+
+
+def phase_federation_extensions(torch, smi) -> int:
+    """The quickstart under each protocol extension (quickstart.EXTENSIONS)
+    on the card, kernel on, 20 iterations; returns the group-mean
+    launches of these runs."""
+    from repro_torch.core.compression import INT8_RATIO
+    from repro_torch.kernels import ops
+    from repro_torch.quickstart import EXTENSIONS, extension_config
+    from repro_torch.tree import tree_leaves
+
+    total = 0
+    for name in EXTENSIONS:
+        want_bytes, want_s, (acc_lo, acc_hi) = EXTENSION_REF[name]
+        cfg = extension_config(name)
+        r = _run_extension(torch, cfg, ops)
+        fed, state = r["fed"], r["state"]
+        # one launch per MAR round: every aggregated tree here (theta and
+        # m, plus DP's smoothed deltas and indicator) is one f32 batch
+        want_launches = sum(r["depths"])
+        row = {"extension": name, "n_peers": r["sizes"],
+               "grid_end": list(fed.plan.dims),
+               "stages": list(fed.pipeline.stage_names),
+               "comm_bytes": fed.comm_bytes, "sim_seconds": fed.sim_seconds,
+               "by_source": fed.ledger.by_source,
+               "launches": r["launches"], "expected_launches": want_launches,
+               "accuracy_20": r["accuracy"], "accuracy_band": [acc_lo, acc_hi],
+               "first_step_ms": r["step_s"][0] * 1e3,
+               "ms_per_iteration": statistics.median(r["step_s"][1:]) * 1e3,
+               "card": smi}
+        if cfg.use_kd:          # the distilling steps after the first
+            row["kd_step_ms"] = statistics.median(
+                r["step_s"][1:cfg.kd_iterations]) * 1e3
+        if state.dp:
+            row.update(clip_start=r["clip0"], clip_end=float(state.dp["clip"]))
+        check(want_launches == (67 if name == "elastic" else 60),
+              f"{name}: the grids give {want_launches} rounds")
+        check(r["launches"] == want_launches,
+              f"{name}: group_mean launched {r['launches']} times, expected "
+              f"{want_launches}")
+        check(fed.comm_bytes == want_bytes,
+              f"{name}: comm_bytes {fed.comm_bytes} != {want_bytes}")
+        check(abs(fed.sim_seconds - want_s) <= 1e-9,
+              f"{name}: sim_seconds {fed.sim_seconds} != {want_s}")
+        check(all(bool(torch.isfinite(x).all())
+                  for x in tree_leaves(state.params)),
+              f"{name}: params not finite")
+        check(acc_lo <= r["accuracy"] <= acc_hi,
+              f"{name}: accuracy {r['accuracy']} at iteration 20 outside "
+              f"[{acc_lo}, {acc_hi}]")
+        if state.dp:
+            check(row["clip_end"] != r["clip0"], f"{name}: the clip never "
+                                                 f"moved")
+        if name == "int8_ef":
+            check(fed.comm_bytes == QUICKSTART_BYTES / INT8_RATIO,
+                  f"int8_ef bytes {fed.comm_bytes} != a quarter of "
+                  f"{QUICKSTART_BYTES}")
+        if name == "elastic":
+            row.update(_elastic_checks(torch, tree_leaves, r))
+        off = _run_extension(torch, extension_config(
+            name, kernel_group_mean=False), ops)
+        diff = max(float((x - y).abs().max()) for x, y in zip(
+            tree_leaves(state.params), tree_leaves(off["state"].params)))
+        row.update(kernel_off_max_param_diff=diff,
+                   kernel_off_launches=off["launches"],
+                   kernel_off_ms_per_iteration=statistics.median(
+                       off["step_s"][1:]) * 1e3)
+        check(off["launches"] == 0, f"{name}: kernel-off run launched "
+                                    f"{off['launches']}")
+        if name in KERNEL_OFF_GATED:
+            check(diff <= 1e-5, f"{name}: kernel on/off params differ "
+                                f"by {diff} > 1e-5")
+        shadow = _kernel_vs_plain_every_aggregation(torch, cfg)
+        row["kernel_vs_index_add_every_aggregation_max_diff"] = shadow
+        check(shadow <= 1e-5, f"{name}: the kernel's aggregation differs "
+                              f"from index_add_'s by {shadow} > 1e-5")
+        emit("federation_extensions", **row)
+        total += r["launches"]
+    return total
+
+
+def _elastic_checks(torch, tree_leaves, r) -> dict:
+    """The elastic run: 27 peers, 13 from iteration 7, 26 from 14;
+    survivors bit-exact across each change, joiners at the f32 mean."""
+    sizes = r["sizes"]
+    check(sizes == [27] * 7 + [13] * 7 + [26] * 6,
+          f"elastic: n_peers per step {sizes}")
+    check(len(r["changes"]) == 2, f"elastic: {len(r['changes'])} changes")
+    out = []
+    for change, before, after in r["changes"]:
+        k = len(change.survivors)
+        joiner_err = 0.0
+        for old, new in ((before.params, after.params),
+                         (before.momentum, after.momentum)):
+            for x, y in zip(tree_leaves(old), tree_leaves(new)):
+                check(torch.equal(y[:k], x[:k]),
+                      f"elastic: survivors changed at {change.old_n} -> "
+                      f"{change.new_n}")
+                if change.new_n > k:
+                    mean = x.double().mean(0, keepdim=True)
+                    joiner_err = max(joiner_err, float(
+                        (y[k:].double() - mean).abs().max()))
+        check(joiner_err <= 1e-6, f"elastic: joiners {joiner_err} from the "
+                                  f"f32 mean")
+        out.append({"old_n": change.old_n, "new_n": change.new_n,
+                    "grid": list(change.new_plan.dims),
+                    "survivors_bit_exact": True,
+                    "joiner_max_err_vs_mean": joiner_err})
+    # the steps that began with a change: 7 and 14
+    return {"membership_changes": out,
+            "resize_step_ms": [r["step_s"][t] * 1e3 for t in (7, 14)]}
+
+
+def _rerun_diff(torch, cfg, steps: int) -> float:
+    """Two runs of one config from one seed on the card: the largest
+    difference of their params after ``steps`` steps (0: exact from
+    run to run)."""
+    from repro_torch.core.federation import Federation
+    from repro_torch.tree import tree_leaves
+
+    runs = []
+    for _ in range(2):
+        fed = Federation(cfg)
+        state = fed.init_state()
+        for _ in range(steps):
+            state = fed.step(state)
+        runs.append(tree_leaves(state.params))
+    return max(float((a - b).abs().max()) for a, b in zip(*runs))
+
+
+def phase_figures(torch, smi) -> int:
+    """``repro_torch.figures --smoke`` on the card, every MAR round's
+    group mean in the kernel: every row's comm_mb and sim_s equal the
+    reference's (FIGURE_ROWS), and Fig. 5's divergence within 1e-5.
+    Then Fig. 5's MAR and FedAvg configs at N=125 twice each: the kernel
+    route must be exact from run to run; the index_add_ routes' run-to-
+    run differences are printed. Returns the kernel's launches in the
+    figure runs."""
+    import contextlib
+    import io
+
+    from repro_torch.core.federation import FederationConfig
+    from repro_torch.figures import run_figures, scale
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = run_figures(["1", "2", "3", "4", "5"], scale(False, True), 0,
+                           None, smoke=True)
+    launches = ops.launch_counts()["group_mean"]
+    seconds = time.perf_counter() - t0
+    got = [r for r in rows if r["row"] not in ("fig1_scaling", "fig_timing")]
+    check(len(got) == len(FIGURE_ROWS),
+          f"figures: {len(got)} rows, the reference prints "
+          f"{len(FIGURE_ROWS)}")
+    for r, (name, comm_mb, sim_s) in zip(got, FIGURE_ROWS):
+        check(r["row"] == name, f"figures: row {r['row']} where the "
+                                f"reference has {name}")
+        for key, want in (("comm_mb", comm_mb), ("sim_s", sim_s)):
+            check(want is None or str(r.get(key)) == want,
+                  f"figures: {name} {key} {r.get(key)} != {want}")
+        if name == "fig5_divergence":
+            check(float(r["max_param_diff"]) <= 1e-5,
+                  f"figures: Fig. 5 {r['technique']} diverges from FedAvg "
+                  f"by {r['max_param_diff']} > 1e-5")
+    check(launches > 0, "figures: the group-mean kernel never launched")
+    timing = [r for r in rows if r["row"] == "fig_timing"]
+
+    full = scale(True)
+    base = dict(n_peers=full["peers"], task="text",
+                local_batches=full["local_batches"], seed=0)
+    rerun = {label: _rerun_diff(torch, FederationConfig(**base, **kw), 10)
+             for label, kw in (
+                 ("mar_kernel", dict(technique="mar",
+                                     kernel_group_mean=True)),
+                 ("mar_index_add", dict(technique="mar")),
+                 ("fedavg_index_add", dict(technique="fedavg")))}
+    emit("figures", seconds=seconds, rows=got, launches=launches,
+         ms_per_iteration={f"{r['fig']}/{r['run']}": r["ms_per_iteration"]
+                           for r in timing},
+         rerun_max_param_diff_n125_10_steps=rerun, card=smi)
+    check(rerun["mar_kernel"] == 0.0,
+          f"figures: the kernel route differs by {rerun['mar_kernel']} "
+          f"between two runs of one config")
+    return launches
+
+
+def profile_quickstart(torch, steps: int = 10, cfg=None) -> dict:
     """Where a kernel-on quickstart step's time goes.
 
-    ``steps`` ``Federation.step`` calls under ``torch.profiler``. The
-    step's own labels (transport, local update, aggregation) give each
-    layer's host time, its kernel launches (the runtime's launch calls
+    ``steps`` ``Federation.step`` calls under ``torch.profiler``, after
+    three unprofiled ones, of ``cfg`` (the quickstart by default). The
+    step's own labels (transport, local update, aggregation, and MKD
+    where the port has it and the config distills) give each layer's
+    host time, its kernel launches (the runtime's launch calls
     inside the label) and the device time of the work those calls and
     its copies queued (matched to the device events by correlation id,
     so kernels launched through ctypes count too); the kernels give the
@@ -530,12 +874,15 @@ def profile_quickstart(torch, steps: int = 10) -> dict:
     """
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.core import federation
     from repro_torch.core.federation import (SPAN_AGGREGATE,
                                              SPAN_LOCAL_UPDATE,
                                              SPAN_TRANSPORT, Federation)
     from repro_torch.quickstart import quickstart_config
 
-    fed = Federation(quickstart_config(kernel_group_mean=True))
+    if cfg is None:
+        cfg = quickstart_config(kernel_group_mean=True)
+    fed = Federation(cfg)
     state = fed.init_state()
     for _ in range(3):
         state = fed.step(state)
@@ -552,6 +899,13 @@ def profile_quickstart(torch, steps: int = 10) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     names = {SPAN_TRANSPORT: "transport", SPAN_LOCAL_UPDATE: "local_update",
              SPAN_AGGREGATE: "aggregate"}
+    # the steps that run each label: MKD only in the first kd_iterations
+    counts = dict.fromkeys(names.values(), steps)
+    span_mkd = getattr(federation, "SPAN_MKD", None)
+    if span_mkd is not None and getattr(cfg, "use_kd", False):
+        names[span_mkd] = "mkd"
+        counts["mkd"] = sum(t < cfg.kd_iterations
+                            for t in range(3, 3 + steps))
     spans = {v: {"host_ms": 0.0, "device_ms": 0.0, "launches": 0.0,
                  "count": 0} for v in names.values()}
     kernels: dict = {}
@@ -583,8 +937,9 @@ def profile_quickstart(torch, steps: int = 10) -> dict:
             us = e.self_device_time_total
             issued[e.id]["device_ms"] += us / steps / 1e3
     for v, s in spans.items():
-        check(s["count"] == steps, f"profile: label {v} seen {s['count']} "
-                                   f"times in {steps} steps")
+        check(s["count"] == counts[v], f"profile: label {v} seen "
+                                       f"{s['count']} times in {steps} "
+                                       f"steps, expected {counts[v]}")
     busy_us = sum(us for _, us in kernels.values())
     check(busy_us > 0, "profile: no device time recorded")
 
@@ -596,7 +951,8 @@ def profile_quickstart(torch, steps: int = 10) -> dict:
     label_us = (time.perf_counter() - t0) / n * 1e6
 
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
-    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+    return {"steps": steps, "label_counts": counts,
+            "wall_ms_per_step": wall_us / steps / 1e3,
             "spans_per_step": {v: {"host_ms": s["host_ms"],
                                    "device_ms": s["device_ms"],
                                    "launches": s["launches"]}
@@ -615,7 +971,12 @@ def profile_quickstart(torch, steps: int = 10) -> dict:
 
 
 def phase_profile(torch):
-    emit("profile", **profile_quickstart(torch))
+    from repro_torch.quickstart import extension_config
+
+    emit("profile", config="quickstart", **profile_quickstart(torch))
+    for name in ("dp_secagg", "mkd"):
+        emit("profile", config=name,
+             **profile_quickstart(torch, cfg=extension_config(name)))
 
 
 # ---------------------------------------------------------------------------
@@ -1506,6 +1867,8 @@ def main() -> None:
     del flush
     phase_vision(torch)
     launches = phase_federation(torch, smi)
+    launches += phase_federation_extensions(torch, smi)
+    launches += phase_figures(torch, smi)
     phase_profile(torch)
     serve_launches = phase_serve(torch, smi)
     phase_serve_parity(torch)
@@ -1514,7 +1877,9 @@ def main() -> None:
 
     # group_mean: the round row of the main path (the quickstart's theta
     # and m, N=27, round 0, one launch), its error the largest over the
-    # three rounds; the attention kernels: their first (bf16,
+    # three rounds, its launches those of the quickstart, of its
+    # protocol-extension runs and of the smoke figures (kernel on); the
+    # attention kernels: their first (bf16,
     # serving-path) row; ssd_scan: its first (zamba2, bf16) row.
     # Launches: each path's count, read right after it ran, summed over
     # the paths a kernel lies on (flash: starcoder2 serving and zamba2's

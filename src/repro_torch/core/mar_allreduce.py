@@ -19,7 +19,7 @@ own slice (ROADMAP.md, Queue 1 item 11).
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,23 +29,38 @@ from repro_torch.core.moshpit import GridPlan
 from repro_torch.tree import Tree, tree_leaves, tree_map
 
 
+class RoundIndex(NamedTuple):
+    """What round ``rnd`` of a plan fixes, on one device."""
+    seg: torch.Tensor       # [cap] each slot's group id
+    order: torch.Tensor     # [cap] the slots sorted by group
+    inv: torch.Tensor       # [cap] the inverse permutation of ``order``
+    partners: torch.Tensor  # [N, M] each peer's group slots, virtual as 0
+    real: torch.Tensor      # [N, M] f32: 1 where the slot is another peer
+
+
 @functools.lru_cache(maxsize=64)
-def _round_index(plan: GridPlan, rnd: int, device: torch.device
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(seg, order, inv) of round ``rnd`` over the grid's capacity, on
-    ``device``: each slot's group id, the slots sorted by group, and the
-    inverse permutation.
+def round_index(plan: GridPlan, rnd: int, device: torch.device
+                ) -> RoundIndex:
+    """The tables of round ``rnd`` over the grid's capacity, on
+    ``device``, for the MAR rounds here, the secure group sums
+    (``core/secagg.py``) and MKD's teacher candidates (``core/mkd.py``).
 
     Built once per (plan, round, device) and kept: the reference built
     them from numpy at trace time, so rebuilding them per leaf per step
     would add host-to-device copies it never paid. GridPlan is frozen
     and hashable; the cache is bounded.
     """
+    n = plan.n_peers
     keys = plan.group_key(np.arange(plan.capacity), rnd)
     order = np.argsort(keys, kind="stable")          # [cap] slots by group
     inv = np.argsort(order)
-    as_t = lambda a: torch.as_tensor(a, dtype=torch.int64).to(device)  # noqa: E731
-    return as_t(keys), as_t(order), as_t(inv)
+    partners = np.asarray(plan.partner_matrix(rnd))[:n]      # [N, M]
+    virtual = partners >= n
+    real = ~virtual & (partners != np.arange(n)[:, None])
+    as_t = lambda a, dt=torch.int64: torch.as_tensor(a, dtype=dt).to(device)  # noqa: E731
+    return RoundIndex(as_t(keys), as_t(order), as_t(inv),
+                      as_t(np.where(virtual, 0, partners)),
+                      as_t(real, torch.float32))
 
 
 def _ones_mask(state: Tree) -> torch.Tensor:
@@ -89,12 +104,12 @@ def _kernel_round(state: Tree, plan: GridPlan, rnd: int,
     ``MAX_LEAVES`` leaves) reads each peer's row by the order and writes
     each peer's row of a fresh output, so there is no padding, no
     gathered copy and no mask gather here. The order lives on the device
-    (``_round_index``).
+    (``round_index``).
     """
     from repro_torch.kernels import group_mean as gm
 
     n, m = plan.n_peers, plan.dims[rnd]
-    _, order, _ = _round_index(plan, rnd, mask.device)
+    order = round_index(plan, rnd, mask.device).order
     mask = mask.float()
     leaves = tree_leaves(state)
     flat = [x.reshape(n, -1).contiguous() for x in leaves]
@@ -122,7 +137,7 @@ def mar_round_sim(state: Tree, plan: GridPlan, rnd: int,
         mask = _ones_mask(state)
     if use_kernel:
         return _kernel_round(state, plan, rnd, mask)
-    seg, _, _ = _round_index(plan, rnd, mask.device)
+    seg = round_index(plan, rnd, mask.device).seg
     num_groups = cap // plan.dims[rnd]
     # pad with virtual always-dropped slots
     pad_mask = _pad(mask, cap - n)

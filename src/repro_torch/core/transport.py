@@ -30,8 +30,9 @@ exactly at full participation:
 
 This is the list-plan half of the JAX package's ``repro/core/transport.py``
 (numpy, copied with its imports rewritten): per-round tuples of
-:class:`Message` objects. The MKD rounds and the array and symbolic
-plans of the large-N engines are not ported yet (ROADMAP.md, Queue 1).
+:class:`Message` objects, and the MKD rounds that ride in front of them.
+The array and symbolic plans of the large-N engines are not ported yet
+(ROADMAP.md, Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -70,8 +71,7 @@ class MessagePlan:
     rounds: Tuple[Tuple[Message, ...], ...]
     # MKD prefix: the first ``kd_rounds`` entries of ``rounds`` are
     # distillation traffic (teacher pulls + logit exchanges); transports
-    # split their bytes back out into ``Transcript.kd_bytes``. Always 0
-    # here until MKD is ported (ROADMAP.md, Queue 1 item 6)
+    # split their bytes back out into ``Transcript.kd_bytes``
     kd_rounds: int = 0
 
     @property
@@ -221,6 +221,65 @@ def hierarchical_plan(plan: GridPlan, mask: Optional[np.ndarray],
                  for g, lead in zip(groups, leaders) for p in g)
     return MessagePlan("hierarchical", n, n + 1,
                        (up, mid_up, mid_down, down))
+
+
+# ---------------------------------------------------------------------------
+# MKD traffic (Alg. 2/3 — rides the same transport as aggregation)
+# ---------------------------------------------------------------------------
+
+def mkd_message_rounds(plan: GridPlan, mask: Optional[np.ndarray],
+                       model_bytes: float, kd_logit_bytes: float,
+                       num_rounds: Optional[int] = None
+                       ) -> Tuple[Tuple[Message, ...], ...]:
+    """Unroll one iteration's MKD rounds into messages.
+
+    MKD round ``g`` reuses the round-``g`` MAR groups (``core/mkd.py``):
+
+    * **teacher pulls** — every active member sends its theta (half the
+      ``(theta, m)`` state, Alg. 3's candidate-model transfer) to every
+      other active member of its group: ``sum_g k_g (k_g - 1)`` sends
+      of ``model_bytes // 2`` — exactly the mask-aware
+      ``topology.mar_bytes`` accounting at half size;
+    * **logit exchange** — each active student receives one mixed
+      teacher-logit message (``kd_logit_bytes``) from its first active
+      group mate, or as a loopback when its group has no other active
+      member (billed, instant — the degenerate-group convention), so
+      each round bills exactly ``n_active`` logit messages, matching
+      the analytic ``n * G * kd_logit_bytes`` add-on.
+    """
+    rounds = plan.depth if num_rounds is None else num_rounds
+    half = model_bytes // 2
+    active = _active_ids(mask, plan.n_peers)
+    out: List[Tuple[Message, ...]] = []
+    for g in range(rounds):
+        msgs: List[Message] = []
+        for group in plan.groups_for_round(g % plan.depth):
+            members = _group_members(group, active, plan.n_peers)
+            for t in members:
+                for s in members:
+                    if s != t:
+                        msgs.append(Message(t, s, half))
+            for s in members:
+                mates = [t for t in members if t != s]
+                msgs.append(Message(mates[0] if mates else s, s,
+                                    kd_logit_bytes))
+        out.append(tuple(msgs))
+    return tuple(out)
+
+
+def with_mkd_traffic(mplan: MessagePlan, plan: GridPlan,
+                     mask: Optional[np.ndarray], model_bytes: float,
+                     kd_logit_bytes: float,
+                     num_rounds: Optional[int] = None) -> MessagePlan:
+    """Prepend an iteration's MKD rounds to an aggregation plan (MKD
+    precedes aggregation within the iteration). KD sizes are the *raw*
+    model bytes — distillation doesn't ride the compressed delta wire
+    format — while the aggregation rounds keep their post-stage sizes.
+    """
+    kd = mkd_message_rounds(plan, mask, model_bytes, kd_logit_bytes,
+                            num_rounds=num_rounds)
+    return dataclasses.replace(mplan, rounds=kd + mplan.rounds,
+                               kd_rounds=len(kd))
 
 
 # ---------------------------------------------------------------------------

@@ -142,7 +142,8 @@ def test_pipeline_ledger_matches_reference(technique):
             ref_l, ref_net.run(ref_p.message_plan(mask, 808096, 0)),
             int(mask.sum()), 808096)
         port_p.record_transcript(
-            port_l, port_net.run(port_p.message_plan(mask, 808096)))
+            port_l, port_net.run(port_p.message_plan(mask, 808096, 0)),
+            int(mask.sum()), 808096)
     assert port_l.by_source == ref_l.by_source
     assert port_l.total_bytes == ref_l.total_bytes
     assert port_l.total_seconds == ref_l.total_seconds
@@ -151,9 +152,12 @@ def test_pipeline_ledger_matches_reference(technique):
 @pytest.mark.parametrize("flag", [{"async_aggregation": True},
                                   {"use_dp": True}, {"use_secagg": True},
                                   {"compress": "int8_ef"}])
-def test_wire_stages_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        aggregation.build_pipeline("mar", GridPlan(4, (2, 2)), **flag)
+def test_wire_stages_build(flag):
+    """Each stage flag builds the reference's stage list."""
+    port = aggregation.build_pipeline("mar", GridPlan(4, (2, 2)), **flag)
+    ref = ref_agg.build_pipeline("mar", RefGridPlan(4, (2, 2)), **flag)
+    assert port.stage_names == ref.stage_names
+    assert set(port.stage_names) <= set(aggregation.WIRE_STAGES)
     with pytest.raises(ValueError):
         aggregation.make_aggregator("pigeon", GridPlan(4, (2, 2)))
 

@@ -176,3 +176,41 @@ def test_convert_round_trip():
     for k in ("w", "b"):
         np.testing.assert_array_equal(back["fc1"][k], tree["fc1"][k])
     np.testing.assert_array_equal(back["conv1"], tree["conv1"])
+
+
+# ---------------------------------------------------------------------------
+# mixing (Eq. 1): numpy-seeded, the same draws in both packages
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,r", [(8, 2), (27, 9), (125, 25), (16, 1)])
+def test_mixing_contraction_factor_equal(n, r):
+    from repro.core import mixing as ref_mixing
+
+    from repro_torch.core import mixing
+    assert mixing.contraction_factor(n, r) == \
+        ref_mixing.contraction_factor(n, r)
+    assert mixing.predicted_distortion(2.5, n, r, 4) == \
+        ref_mixing.predicted_distortion(2.5, n, r, 4)
+
+
+def test_mixing_random_group_average_and_contraction():
+    """The random partition is the reference's draw for draw, so one
+    averaging step is bit-exact; distortions agree to f32 rounding."""
+    import jax.numpy as jnp
+
+    from repro.core import mixing as ref_mixing
+
+    from repro_torch.core import mixing
+    x = np.random.default_rng(0).normal(size=(12, 16)).astype(np.float32)
+    got = mixing.random_group_average(torch.from_numpy(x), 3,
+                                      np.random.default_rng(5))
+    want = ref_mixing.random_group_average(jnp.asarray(x), 3,
+                                           np.random.default_rng(5))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert mixing.distortion(got) == pytest.approx(
+        ref_mixing.distortion(want), rel=1e-6)
+    emp, pred = mixing.empirical_contraction(16, 4, 3, trials=4, seed=1)
+    ref_emp, ref_pred = ref_mixing.empirical_contraction(16, 4, 3, trials=4,
+                                                         seed=1)
+    assert pred == ref_pred
+    assert emp == pytest.approx(ref_emp, rel=1e-5)
