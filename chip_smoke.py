@@ -34,7 +34,7 @@ Phases, each printing JSON lines:
                 [G, M, D] entry, gather back), the dropped group kept
                 bit for bit, one launch per dtype batch. Times with L2
                 flushed: the kernel, that route, the plain version and
-                the kernel-off route (index_add_), beside the bound, and
+                the kernel-off route (grouped sums), beside the bound, and
                 the host time of a round.
 4. flash_attention, paged_decode, decode_attention — each attention
                 kernel against its plain version on the card, at the
@@ -85,7 +85,7 @@ Phases, each printing JSON lines:
                 quantization, a teacher ranking or DP's clipping
                 indicator can turn a 1e-7 difference into a step); and
                 one more run of each in which every aggregation is also
-                computed by the index_add_ route from the same input,
+                computed by the kernel-off route from the same input,
                 within 1e-5 of the kernel's. Each row gives
                 first_step_ms, ms_per_iteration and the card.
    figures    — ``repro_torch.figures --smoke`` (Figs. 1-5, 8 peers, 6
@@ -93,10 +93,9 @@ Phases, each printing JSON lines:
                 every row's comm_mb and sim_s equal the reference's
                 (FIGURE_ROWS), Fig. 5's divergence from FedAvg within
                 1e-5, the kernel launched, each run's ms per iteration.
-                Then Fig. 5's MAR (kernel and index_add_) and FedAvg
-                configs at N=125, two runs of 10 steps each: the kernel
-                route is exact from run to run; the others' run-to-run
-                differences are printed.
+                Then Fig. 5's MAR (kernel on and off) and FedAvg
+                configs at N=125, two runs of 10 steps each: every
+                route is exact from run to run.
 7. profile    — ten quickstart steps under ``torch.profiler``: host and
                 device time of each layer ``Federation.step`` labels
                 (transport, local update, aggregation), the
@@ -132,13 +131,42 @@ Phases, each printing JSON lines:
                 kernel-path prefill logits within 1e-4 of the plain
                 path's, and equal greedy streams (a parting at a near
                 tie is printed with its top-2 logits).
-12. kernels   — one JSON object per kernel: launches on its main path
+12. serve_moe — the published moonshot-v1-16b-a3b (48 layers, d 2048,
+                16 heads of 128 with kv 16, 64 experts top-6 of d_ff
+                1408 and 2 shared, vocab 163,840, bf16; 28,888,467,456
+                parameters drawn on the card from seed 0, after the
+                earlier phases freed their models) through the engine
+                with the serve phase's traffic: every session ends with
+                64 tokens, the pool is quiescent, the logits and aux
+                are finite, flash launches 48 times per prefill and the
+                paged kernel 48 times per decode step. Prints the
+                parameter count and bytes, the peak device memory,
+                tokens/s, TTFT and per-token times; then ten decode
+                steps and one prefill under ``torch.profiler``, the MoE
+                expert products and combine (label ``moe``) apart.
+13. serve_moe_parity — moonshot's widths at 2 layers in f32: the
+                engine's greedy streams equal the sequential baseline's
+                and a second engine run's (the combine is
+                deterministic), and the flash kernel's prefill logits
+                are within 1e-4 of the plain path's.
+14. checkpoint — moonshot's smoke config on the card: an FL state
+                (params and momentum, a peer axis of 3, bf16 and the
+                f32 router) saved and restored bit for bit with and
+                without ``like`` (the default device, CUDA); an engine
+                polling the directory every 2 steps swaps a newer step
+                in mid-drain (``ckpt:2``) with no session dropped, its
+                weights bit for bit the peer mean
+                ``serving_params_from_checkpoint`` makes on the CPU.
+15. kernels   — one JSON object per kernel: launches on its main path
                 (the group mean's: the federation run's 60, the
-                extension runs' 427 and the smoke figures'), max error,
-                times, bound.
+                extension runs' 427 and the smoke figures'; flash's and
+                the paged kernel's include the moonshot run's), max
+                error, times, bound.
 
 Phase 4 also runs the flash kernel at zamba2's shared-attention shape
-(s=512, h=kvh=32, d=80, bf16), and an ``ssd_scan`` phase holds the
+(s=512, h=kvh=32, d=80, bf16), flash and the paged kernel at
+moonshot's (h=kvh=16, d=128: one query head per kv head, g=1) in bf16
+and f32, and an ``ssd_scan`` phase holds the
 SSD-scan kernel against its plain sequential version at both families'
 prefill shapes (zamba2: 80 heads, dk=dv=64, B and C broadcast with a
 head stride of 0, Mamba's decay rates; xlstm: 4 heads, dk 512, dv 513),
@@ -216,7 +244,7 @@ MAIN_PATH_D = (98304, 128, 2560, 20)    # fc1.w, fc1.b, fc2.w, fc2.b
 # into a teacher swap, DP into a flipped clipping indicator (the clip
 # tracks a quantile of the peers' delta norms, so a norm sits within
 # 1e-4 of it); theirs is printed, and every run's kernel is held against
-# the index_add_ route on the same inputs in every aggregation instead
+# the kernel-off route on the same inputs in every aggregation instead
 KERNEL_OFF_GATED = ("async", "elastic")
 
 
@@ -388,7 +416,7 @@ def phase_group_mean_round(torch, flush):
     group, which must keep its rows bit for bit; f32 and bf16 must be
     bit-equal to the route the kernel replaced (gather, [G, M, D]
     entry, scatter). Times with L2 flushed: the kernel, that route, the
-    plain version and the kernel-off route (``index_add_``)."""
+    plain version and the kernel-off route (grouped sums)."""
     from repro_torch.core import mar_allreduce as mar
     from repro_torch.core.moshpit import GridPlan
     from repro_torch.kernels import group_mean as gm
@@ -637,7 +665,7 @@ def _kernel_vs_plain_every_aggregation(torch, cfg, iterations: int = 20
                                        ) -> float:
     """One more run of ``cfg`` on the card in which every MAR
     aggregation is computed twice from the same input, by the kernel and
-    by the ``index_add_`` route; the run goes on with the kernel's
+    by the kernel-off route; the run goes on with the kernel's
     result. Returns the largest difference over every leaf (DP's
     indicator and smoothed deltas included) of every aggregation."""
     from repro_torch.core import mar_allreduce as mar
@@ -739,9 +767,10 @@ def phase_federation_extensions(torch, smi) -> int:
             check(diff <= 1e-5, f"{name}: kernel on/off params differ "
                                 f"by {diff} > 1e-5")
         shadow = _kernel_vs_plain_every_aggregation(torch, cfg)
-        row["kernel_vs_index_add_every_aggregation_max_diff"] = shadow
+        row["kernel_vs_kernel_off_every_aggregation_max_diff"] = shadow
         check(shadow <= 1e-5, f"{name}: the kernel's aggregation differs "
-                              f"from index_add_'s by {shadow} > 1e-5")
+                              f"from the kernel-off route's by {shadow} > "
+                              f"1e-5")
         emit("federation_extensions", **row)
         total += r["launches"]
     return total
@@ -800,10 +829,9 @@ def phase_figures(torch, smi) -> int:
     """``repro_torch.figures --smoke`` on the card, every MAR round's
     group mean in the kernel: every row's comm_mb and sim_s equal the
     reference's (FIGURE_ROWS), and Fig. 5's divergence within 1e-5.
-    Then Fig. 5's MAR and FedAvg configs at N=125 twice each: the kernel
-    route must be exact from run to run; the index_add_ routes' run-to-
-    run differences are printed. Returns the kernel's launches in the
-    figure runs."""
+    Then Fig. 5's MAR (kernel on and off) and FedAvg configs at N=125
+    twice each: every route must be exact from run to run. Returns the
+    kernel's launches in the figure runs."""
     import contextlib
     import io
 
@@ -842,15 +870,15 @@ def phase_figures(torch, smi) -> int:
              for label, kw in (
                  ("mar_kernel", dict(technique="mar",
                                      kernel_group_mean=True)),
-                 ("mar_index_add", dict(technique="mar")),
-                 ("fedavg_index_add", dict(technique="fedavg")))}
+                 ("mar_kernel_off", dict(technique="mar")),
+                 ("fedavg", dict(technique="fedavg")))}
     emit("figures", seconds=seconds, rows=got, launches=launches,
          ms_per_iteration={f"{r['fig']}/{r['run']}": r["ms_per_iteration"]
                            for r in timing},
          rerun_max_param_diff_n125_10_steps=rerun, card=smi)
-    check(rerun["mar_kernel"] == 0.0,
-          f"figures: the kernel route differs by {rerun['mar_kernel']} "
-          f"between two runs of one config")
+    check(all(v == 0.0 for v in rerun.values()),
+          f"figures: a route differs between two runs of one config: "
+          f"{rerun}")
     return launches
 
 
@@ -985,6 +1013,7 @@ def phase_profile(torch):
 
 STARCODER = dict(h=24, kvh=2, d=128)            # starcoder2-3b attention
 ZAMBA2_ATTN = dict(h=32, kvh=32, d=80)          # zamba2-2.7b shared block
+MOONSHOT_ATTN = dict(h=16, kvh=16, d=128)       # moonshot-v1-16b-a3b (g=1)
 SERVE = dict(max_batch=8, block_size=16, pad_len=512, max_new=64,
              sessions=16)
 SERVE_LAYERS = 30
@@ -1048,7 +1077,9 @@ def phase_flash(torch, flush):
             ("zamba2", RECURRENT["pad_len"], torch.bfloat16, za),
             ("tile_edge", 65, torch.bfloat16, sc),
             ("tile_edge", 129, torch.bfloat16, sc),
-            ("zamba2_ragged", 200, torch.bfloat16, za)]:
+            ("zamba2_ragged", 200, torch.bfloat16, za),
+            ("moonshot", SERVE["pad_len"], torch.bfloat16, MOONSHOT_ATTN),
+            ("moonshot", SERVE["pad_len"], torch.float32, MOONSHOT_ATTN)]:
         h, kvh, d = heads["h"], heads["kvh"], heads["d"]
         q = torch.randn((1, s, h, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((1, s, kvh, d), generator=gen,
@@ -1098,10 +1129,10 @@ def phase_paged(torch, flush):
     """The paged kernel against ``gather_dense_decode`` at the serving
     path's decode shapes (b=8, pages of 16, 36 table columns, 289 pages):
     lengths 1, full, mid-page and others, and one row whose table is all
-    scratch page 0 (length 1), as an inactive engine row."""
+    scratch page 0 (length 1), as an inactive engine row; starcoder2's
+    heads (g=12) and moonshot's (g=1)."""
     from repro_torch.kernels import paged_attention as pa
 
-    h, kvh, d = STARCODER["h"], STARCODER["kvh"], STARCODER["d"]
     b, bs = SERVE["max_batch"], SERVE["block_size"]
     nblk = -(-(SERVE["pad_len"] + SERVE["max_new"]) // bs)          # 36
     nb = 1 + nblk * b                                                 # 289
@@ -1112,7 +1143,11 @@ def phase_paged(torch, flush):
     tables[-1] = 0                                 # the scratch-only row
     lengths = torch.tensor(lengths_host, dtype=torch.int32, device="cuda")
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for kind, heads, dtype in [("path", STARCODER, torch.bfloat16),
+                               ("path", STARCODER, torch.float32),
+                               ("moonshot", MOONSHOT_ATTN, torch.bfloat16),
+                               ("moonshot", MOONSHOT_ATTN, torch.float32)]:
+        h, kvh, d = heads["h"], heads["kvh"], heads["d"]
         q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
         kp = torch.randn((nb, bs, kvh, d), generator=gen,
                          device="cuda").to(dtype)
@@ -1124,12 +1159,12 @@ def phase_paged(torch, flush):
         tol = _tol(torch, dtype)
         err = float((out.float() - want.float()).abs().max())
         check(bool(torch.isfinite(out).all()), "paged: non-finite output")
-        check(err <= tol, f"paged {dtype}: max abs err {err} > {tol}")
+        check(err <= tol, f"paged {kind} {dtype}: max abs err {err} > {tol}")
         nbytes, flops = _decode_bytes_flops(
             q, 2 * kvh * d * q.element_size(), lengths_host, h, d)
         nbytes += _nbytes(tables, lengths)
         bound = attention_bound_ms(nbytes, flops, dtype == torch.bfloat16)
-        row = _row("path", dtype, err, tol,
+        row = _row(kind, dtype, err, tol,
                    device_ms(torch, lambda: pa.paged_decode_attention_fwd(
                        q, kp, vp, tables, lengths), flush=flush),
                    device_ms(torch, lambda: pa.gather_dense_decode(
@@ -1341,13 +1376,16 @@ PORT_KERNELS = ("flash_fwd_", "decode_split_", "ssd_scan_",
 
 
 def _device_profile(torch, prof, wall_us: float, steps: int,
-                    what: str) -> dict:
+                    what: str, labels=()) -> dict:
     """Per step: wall and device-busy time, the busy share, kernel
     launches, the eight kernels with the most device time, and the
-    port's own kernels with their share of the busy time."""
+    port's own kernels with their share of the busy time. ``labels``
+    are ``record_function`` names, whose device-side ranges are not
+    kernels."""
     kernels: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.name not in labels:
             k = kernels.setdefault(e.name[:60], [0, 0.0])
             k[0] += 1
             k[1] += e.self_device_time_total
@@ -1771,6 +1809,320 @@ def phase_recurrent_parity(torch):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the moe family: moonshot-v1-16b-a3b at full width, parity, checkpoints
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 48
+MOE_PARAMS = 28_888_467_456          # the reference's Model.init, counted
+
+
+def _label_profile(torch, prof, label: str, steps: int) -> dict:
+    """Per step: the host time inside ``label``'s ranges, the kernel
+    launches issued there and the device time of the work they queued
+    (matched by correlation id, as :func:`profile_quickstart` does), and
+    that device time's share of all the device time."""
+    import bisect
+
+    cpu = torch.autograd.DeviceType.CPU
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.events())
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.name == label and e.device_type == cpu)
+    starts = [a for a, _ in ranges]
+    issued, launches = set(), 0
+    for e in events:
+        if e.device_type != cpu or not any(
+                w in e.name for w in ("LaunchKernel", "Memcpy", "Memset")):
+            continue
+        t = e.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ranges[i][1]:
+            issued.add(e.id)
+            launches += "LaunchKernel" in e.name
+    dev = [e for e in events if e.device_type == cuda and e.name != label]
+    label_us = sum(e.self_device_time_total for e in dev if e.id in issued)
+    busy_us = sum(e.self_device_time_total for e in dev)
+    check(ranges and label_us > 0, f"profile: no device time under {label}")
+    return {"label": label, "ranges_per_step": len(ranges) / steps,
+            "host_ms_per_step": sum(b - a for a, b in ranges) / steps / 1e3,
+            "launches_per_step": launches / steps,
+            "device_ms_per_step": label_us / steps / 1e3,
+            "share_of_busy": label_us / busy_us}
+
+
+def phase_serve_moe(torch, smi):
+    """moonshot-v1-16b-a3b at full width through the port's engine: 48
+    layers, d 2048, 16 heads of 128 (kv 16: g = 1), 64 experts top-6 of
+    d_ff 1408 and 2 shared, vocab 163,840, bf16, random weights from
+    seed 0 drawn on the card; the serve phase's traffic. Then ten decode
+    steps and one prefill under ``torch.profiler``, with the MoE expert
+    products and combine (label ``moe``) apart."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serve import DecodeServer, ServeConfig
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    cfg = get_config("moonshot-v1-16b-a3b")
+    check(cfg.family == "moe" and cfg.num_layers == MOE_LAYERS
+          and cfg.dtype == "bfloat16" and cfg.attn_impl == "flash"
+          and (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+          == (MOONSHOT_ATTN["h"], MOONSHOT_ATTN["kvh"], MOONSHOT_ATTN["d"]),
+          f"unexpected config {cfg}")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)             # the default device: cuda
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    check(n_params == MOE_PARAMS == cfg.param_count(),
+          f"serve_moe: {n_params} parameters, expected {MOE_PARAMS}")
+    scfg = _serve_config(ServeConfig)
+    prompts = _serve_prompts(cfg.vocab_size, SERVE["sessions"],
+                             SERVE["pad_len"])
+
+    warm = DecodeServer(model, params, _serve_config(ServeConfig, 2))
+    warm.enqueue(prompts[0])
+    warm.run()
+    del warm
+
+    srv = DecodeServer(model, params, scfg)
+    for p in prompts:
+        srv.enqueue(p)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    srv.assert_quiescent()
+    st = srv.stats()
+    peak = torch.cuda.max_memory_allocated()
+
+    with torch.inference_mode():
+        logits, aux, _ = model.forward(params, _prompt_tokens(torch,
+                                                              prompts[0]))
+        finite = bool(torch.isfinite(logits).all()) and \
+            bool(torch.isfinite(aux))
+    del logits
+    emit("serve_moe", arch=cfg.name, params=n_params, param_bytes=n_bytes,
+         resident_before_bytes=resident, init_s=init_s,
+         init_peak_memory_bytes=init_peak, sessions=len(srv.finished),
+         prefills=st["prefills"], decode_steps=st["decode_steps"],
+         tokens=st["tokens"], elapsed_s=elapsed,
+         tokens_per_s=st["tokens"] / elapsed,
+         ttft_p50_ms=st["p50_ttft_s"] * 1e3,
+         per_token_p50_ms=st["p50_tok_s"] * 1e3,
+         per_token_p99_ms=st["p99_tok_s"] * 1e3,
+         peak_memory_bytes=peak, launches=launches,
+         expected_per_step=MOE_LAYERS, logits_finite=finite, card=smi)
+    check(len(srv.finished) == SERVE["sessions"]
+          and all(len(s.generated) == SERVE["max_new"]
+                  for s in srv.finished),
+          "serve_moe: a session did not finish with 64 tokens")
+    check(finite, "serve_moe: prefill logits or aux are not finite")
+    check(launches["flash_attention"] == st["prefills"] * MOE_LAYERS,
+          f"serve_moe: flash launched {launches['flash_attention']} times "
+          f"for {st['prefills']} prefills of {MOE_LAYERS} layers")
+    check(launches["paged_decode_attention"]
+          == st["decode_steps"] * MOE_LAYERS,
+          f"serve_moe: paged kernel launched "
+          f"{launches['paged_decode_attention']} times for "
+          f"{st['decode_steps']} decode steps")
+
+    prof_srv = DecodeServer(model, params, scfg)
+    for p in prompts[:SERVE["max_batch"]]:
+        prof_srv.enqueue(p)
+    prof_srv.step()                       # admits all eight, one decode
+    torch.cuda.synchronize()
+    steps = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            prof_srv.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    emit("serve_moe_profile", part="decode", steps=steps,
+         batch=len(prof_srv.running),
+         moe=_label_profile(torch, prof, "moe", steps),
+         **_device_profile(torch, prof, wall_us, steps,
+                           "serve_moe decode profile", labels=("moe",)))
+    del prof_srv
+    toks = _prompt_tokens(torch, prompts[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.forward(params, toks)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    emit("serve_moe_profile", part="prefill", pad_len=SERVE["pad_len"],
+         moe=_label_profile(torch, prof, "moe", 1),
+         **_device_profile(torch, prof, wall_us, 1,
+                           "serve_moe prefill profile", labels=("moe",)))
+    del params, srv, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_moe_parity(torch):
+    """moonshot's widths at 2 layers in f32: the engine's greedy streams
+    (paged kernel; batch 8 keeps the decode capacity at 8, so no
+    assignment drops) equal the sequential baseline's (plain dense
+    decode), a second engine run gives the same streams (the combine is
+    deterministic), and the flash kernel's prefill logits agree with the
+    plain path's within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import DecodeServer, ServeConfig, run_sequential
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              num_layers=2, dtype="float32")
+    model = Model(cfg)
+    params = model.init(seed=0)
+    prompts = _serve_prompts(cfg.vocab_size, 12, SERVE["pad_len"])
+    runs = []
+    for _ in range(2):
+        srv = DecodeServer(model, params, _serve_config(ServeConfig))
+        for p in prompts:
+            srv.enqueue(p)
+        srv.run()
+        srv.assert_quiescent()
+        runs.append({s.sid: s.generated for s in srv.finished})
+    seq = run_sequential(model, params, prompts, max_new=SERVE["max_new"],
+                         pad_len=SERVE["pad_len"])
+    same = [runs[0][s.sid] == s.generated for s in seq]
+    with torch.inference_mode():
+        toks = _prompt_tokens(torch, prompts[0])
+        flash, aux_k, _ = model.forward(params, toks)
+        plain, aux_p, _ = Model(dataclasses.replace(cfg, attn_impl="xla")) \
+            .forward(params, toks)
+        logit_err = float((flash - plain).abs().max())
+    emit("serve_moe_parity", layers=2, dtype="float32",
+         sessions=len(prompts), streams_equal=sum(same),
+         engine_reruns_equal=runs[0] == runs[1],
+         engine_decode_steps=srv.decode_steps,
+         prefill_logits_flash_vs_xla_max_abs_err=logit_err,
+         aux_flash_vs_xla=[float(aux_k), float(aux_p)])
+    check(all(same), f"serve_moe_parity: {len(same) - sum(same)} of "
+                     f"{len(same)} engine streams differ from sequential")
+    check(runs[0] == runs[1], "serve_moe_parity: two engine runs differ")
+    check(logit_err <= 1e-4, f"serve_moe_parity: flash vs xla prefill "
+                             f"logits differ by {logit_err} > 1e-4")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _same_bits(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}.get(
+        a.element_size(), torch.uint8)
+    return torch.equal(a.contiguous().view(view).cpu(),
+                       b.contiguous().view(view).cpu())
+
+
+def phase_checkpoint(torch):
+    """Checkpoints and the hot-swap on the card, moonshot's smoke config
+    (bf16 experts, f32 router): an FL state ``{"params", "momentum"}``
+    with a peer axis of 3 saved and restored bit for bit, with and
+    without ``like``; then an engine polling the directory every 2 steps
+    swaps a newer step in mid-drain, no session dropped, its weights bit
+    for bit the peer mean ``serving_params_from_checkpoint`` makes on
+    the CPU."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import (DecodeServer, ServeConfig,
+                                   serving_params_from_checkpoint)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config("moonshot-v1-16b-a3b")
+    model = Model(cfg)
+    params = model.init(seed=0)
+
+    def fl_state(scale):
+        def peers(x):
+            return torch.stack([x, x * scale, x * (2 - scale)])
+        return {"params": tree_map(peers, params),
+                "momentum": tree_map(lambda x: peers(x) * 0.1, params)}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp, keep=2)
+        state = fl_state(1.5)
+        t0 = time.perf_counter()
+        ck.save(1, state, metadata={"n_peers": 3})
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got, meta = ck.restore()                # the default device: cuda
+        torch.cuda.synchronize()
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        liked, _ = ck.restore(like=state)
+        want = tree_leaves(state)
+        dtypes = sorted({str(x.dtype) for x in want})
+        ok_plain = all(_same_bits(torch, a, b) and a.is_cuda
+                       for a, b in zip(tree_leaves(got), want))
+        ok_like = all(_same_bits(torch, a, b) and a.is_cuda
+                      for a, b in zip(tree_leaves(liked), want))
+        out.update(leaves=len(want), dtypes=dtypes, meta=meta,
+                   bit_exact_without_like=ok_plain,
+                   bit_exact_with_like=ok_like)
+        check(ok_plain and ok_like and meta == {"n_peers": 3},
+              f"checkpoint: a restore is not bit for bit: {out}")
+
+        scfg = ServeConfig(max_batch=2, block_size=4, num_blocks=40,
+                           pad_len=12, max_new=8)
+        srv = DecodeServer(model, params, scfg)
+        srv.attach_checkpointer(Checkpointer(tmp), params, every=2)
+        for p in _serve_prompts(cfg.vocab_size, 4, 12):
+            srv.enqueue(p)
+        for _ in range(3):
+            srv.step()
+        ck.save(2, fl_state(1.25), metadata={"n_peers": 3})
+        srv.run()
+        srv.assert_quiescent()
+        state_cpu, _ = ck.restore(2, device="cpu")
+        want = serving_params_from_checkpoint(
+            state_cpu, tree_map(lambda x: x.cpu(), params))
+        swapped = all(_same_bits(torch, a, b) and a.is_cuda
+                      for a, b in zip(tree_leaves(srv.params),
+                                      tree_leaves(want)))
+        out.update(swap_log=srv.swap_log,
+                   sessions=len(srv.finished),
+                   tokens=[len(s.generated) for s in srv.finished],
+                   swapped_bit_equal_to_cpu_fold=swapped)
+    emit("checkpoint", arch=cfg.name, **out)
+    check(len(srv.swap_log) == 1 and srv.swap_log[0]["tag"] == "ckpt:2"
+          and srv.swap_log[0]["in_flight"],
+          f"checkpoint: expected one mid-drain swap to ckpt:2, got "
+          f"{srv.swap_log}")
+    check(len(srv.finished) == 4
+          and all(len(s.generated) == 8 for s in srv.finished),
+          "checkpoint: a session was dropped or cut short by the swap")
+    check(swapped, "checkpoint: the swapped weights are not the CPU fold")
+
+
 def ptxas_summary(report: dict, sources) -> list:
     """Registers, spill bytes and static shared memory of every kernel
     the named sources compiled, read from nvcc's ``-Xptxas -v`` log
@@ -1874,6 +2226,9 @@ def main() -> None:
     phase_serve_parity(torch)
     recurrent_launches = phase_serve_recurrent(torch, smi)
     phase_recurrent_parity(torch)
+    moe_launches = phase_serve_moe(torch, smi)
+    phase_serve_moe_parity(torch)
+    phase_checkpoint(torch)
 
     # group_mean: the round row of the main path (the quickstart's theta
     # and m, N=27, round 0, one launch), its error the largest over the
@@ -1882,8 +2237,8 @@ def main() -> None:
     # attention kernels: their first (bf16,
     # serving-path) row; ssd_scan: its first (zamba2, bf16) row.
     # Launches: each path's count, read right after it ran, summed over
-    # the paths a kernel lies on (flash: starcoder2 serving and zamba2's
-    # prefills)
+    # the paths a kernel lies on (flash: starcoder2, zamba2 and moonshot
+    # prefills; paged: starcoder2 and moonshot decode steps)
     qs = [r for r in round_rows if r["kind"] == "quickstart"]
     print(json.dumps({"kernels": [
         {**kernel_entry("group_mean",
@@ -1896,16 +2251,19 @@ def main() -> None:
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:76",
                      serve_launches["flash_attention"]
-                     + recurrent_launches["flash_attention"], flash_rows[0]),
+                     + recurrent_launches["flash_attention"]
+                     + moe_launches["flash_attention"], flash_rows[0]),
         kernel_entry("paged_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/paged_attention.py:76",
-                     serve_launches["paged_decode_attention"],
+                     serve_launches["paged_decode_attention"]
+                     + moe_launches["paged_decode_attention"],
                      paged_rows[0]),
         kernel_entry("decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:67",
-                     serve_launches["decode_attention"], decode_rows[0]),
+                     serve_launches["decode_attention"]
+                     + moe_launches["decode_attention"], decode_rows[0]),
         kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:70",
                      recurrent_launches["ssd_scan"], ssd_rows[0]),

@@ -12,11 +12,12 @@ bfloat16 of its own, so a JAX bf16 leaf arrives as an array whose
 ``dtype.name`` is ``"bfloat16"`` (``ml_dtypes``'s type), which
 ``torch.from_numpy`` refuses. Its 16-bit patterns are reinterpreted as
 ``np.uint16`` and then as ``torch.bfloat16``; going out, a bf16 tensor
-leaves as the ``np.uint16`` array of the same bits.
+leaves as the ``np.uint16`` array of the same bits. The two float8
+types cross the same way as ``np.uint8`` bits.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,19 +27,38 @@ from repro_torch.tree import Tree, tree_map
 NumpyTree = Union[np.ndarray, Dict[str, "NumpyTree"]]
 
 
-def _leaf_from_numpy(x: Any, device: Union[str, torch.device]
-                     ) -> torch.Tensor:
+#: narrow floats numpy has no type of its own for: the torch dtype, the
+#: unsigned numpy view that carries the bits, and the torch view of it
+BIT_VIEWS = {"bfloat16": (torch.bfloat16, np.uint16, torch.int16),
+             "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8, torch.uint8),
+             "float8_e5m2": (torch.float8_e5m2, np.uint8, torch.uint8)}
+
+
+def dtype_name(x: torch.Tensor) -> str:
+    """The numpy (and ``ml_dtypes``) name of a tensor's dtype."""
+    return str(x.dtype).removeprefix("torch.")
+
+
+def _leaf_from_numpy(x: Any, device: Union[str, torch.device],
+                     name: Optional[str] = None) -> torch.Tensor:
+    """An array -> a tensor on ``device``. A narrow float arrives either
+    typed (``dtype.name`` in :data:`BIT_VIEWS`) or as its unsigned bits
+    with ``name`` naming the type."""
     arr = np.asarray(x)
-    if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.uint16).copy()
-        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    name = name or arr.dtype.name
+    if name in BIT_VIEWS:
+        dtype, bits_np, _ = BIT_VIEWS[name]
+        bits = np.ascontiguousarray(arr).view(bits_np).copy()
+        return torch.from_numpy(bits).view(dtype).to(device)
     return torch.from_numpy(np.array(arr)).to(device)
 
 
 def _leaf_to_numpy(x: torch.Tensor) -> np.ndarray:
     x = x.detach().cpu()
-    if x.dtype == torch.bfloat16:
-        return x.contiguous().view(torch.int16).numpy().view(np.uint16)
+    name = dtype_name(x)
+    if name in BIT_VIEWS:
+        _, bits_np, bits_t = BIT_VIEWS[name]
+        return x.contiguous().view(bits_t).numpy().view(bits_np)
     return x.numpy()
 
 

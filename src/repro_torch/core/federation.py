@@ -118,7 +118,7 @@ class FederationConfig:
     placement: Optional[str] = None
     placement_params: Optional[Dict[str, Any]] = None
     # route the sim MAR masked group mean through the hand-written CUDA
-    # kernel (kernels/group_mean.py) instead of index_add_ segment sums;
+    # kernel (kernels/group_mean.py) instead of the grouped segment sums;
     # the reference's field is ``pallas_group_mean``
     kernel_group_mean: bool = False
     # data heterogeneity

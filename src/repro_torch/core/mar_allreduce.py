@@ -12,8 +12,10 @@ group keeps its previous state.
 
 Port of the sim half of the JAX package's ``repro/core/mar_allreduce.py``.
 ``use_kernel`` routes each round through the masked group-mean kernel
-(``kernels/group_mean.py``); otherwise ``_segment_mean`` uses
-``index_add_``. The device backend (``mar_round_device``) waits for its
+(``kernels/group_mean.py``); otherwise ``_segment_mean`` sums each
+group's rows (``index_add_`` on the CPU, a grouped sum on the card,
+where ``index_add_``'s atomics add in another order on every run). The
+device backend (``mar_round_device``) waits for its
 own slice (ROADMAP.md, Queue 1 item 11).
 """
 from __future__ import annotations
@@ -75,21 +77,43 @@ def _pad(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((rows,) + tuple(x.shape[1:]))])
 
 
+def _group_sums(x: torch.Tensor, order: torch.Tensor,
+                num_groups: int) -> torch.Tensor:
+    """[num_groups, ...]: the rows of each group summed, the groups'
+    rows listed by ``order`` group by group (equal sizes). No atomics:
+    the same inputs give the same bits on every run."""
+    return x[order].reshape((num_groups, -1) + tuple(x.shape[1:])) \
+        .sum(dim=1)
+
+
 def _segment_mean(x: torch.Tensor, seg_ids: torch.Tensor, num_groups: int,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Masked per-group mean, scattered back to peers.
 
-    x: [N, ...]; seg_ids: [N] int64 group ids; mask: [N] (0/1 float).
-    Returns [N, ...] where peer i holds mean over its group's active peers
-    (or its own value if the whole group dropped).
+    x: [N, ...]; seg_ids: [N] int64 group ids; mask: [N] (0/1 float);
+    order: [N] the rows group by group, every group the same size, each
+    group's rows ascending (``round_index(...).order``). Returns [N, ...]
+    where peer i holds mean over its group's active peers (or its own
+    value if the whole group dropped).
+
+    Each group's rows add in ascending row order, from zero, in f32. On
+    the CPU that is ``index_add_``; on the card ``index_add_`` adds
+    through atomics in an order that changes from run to run, so the
+    rows are gathered by ``order`` and summed per group instead, which
+    is exact from run to run.
     """
     mshape = (-1,) + (1,) * (x.dim() - 1)
     m = mask.reshape(mshape).float()
-    sums = torch.zeros((num_groups,) + tuple(x.shape[1:]),
-                       dtype=torch.float32, device=x.device)
-    sums.index_add_(0, seg_ids, x.float() * m)
-    cnts = torch.zeros(num_groups, dtype=torch.float32, device=x.device)
-    cnts.index_add_(0, seg_ids, mask.float())
+    xm = x.float() * m
+    if x.device.type == "cpu":
+        sums = torch.zeros((num_groups,) + tuple(x.shape[1:]),
+                           dtype=torch.float32, device=x.device)
+        sums.index_add_(0, seg_ids, xm)
+        cnts = torch.zeros(num_groups, dtype=torch.float32, device=x.device)
+        cnts.index_add_(0, seg_ids, mask.float())
+    else:
+        sums = _group_sums(xm, order, num_groups)
+        cnts = _group_sums(mask.float(), order, num_groups)
     cnt_per_peer = cnts[seg_ids].reshape(mshape)
     return finalize_masked_mean(sums[seg_ids], cnt_per_peer, x).to(x.dtype)
 
@@ -130,20 +154,20 @@ def mar_round_sim(state: Tree, plan: GridPlan, rnd: int,
     ``state`` leaves: [N, ...] with N == plan.n_peers. Virtual slots
     (capacity > N) are handled by embedding into capacity internally.
     ``use_kernel`` routes the masked group mean through the group-mean
-    kernel (``index_add_`` segment sums otherwise — identical semantics).
+    kernel (``_segment_mean`` otherwise — identical semantics).
     """
     n, cap = plan.n_peers, plan.capacity
     if mask is None:
         mask = _ones_mask(state)
     if use_kernel:
         return _kernel_round(state, plan, rnd, mask)
-    seg = round_index(plan, rnd, mask.device).seg
+    idx = round_index(plan, rnd, mask.device)
     num_groups = cap // plan.dims[rnd]
     # pad with virtual always-dropped slots
     pad_mask = _pad(mask, cap - n)
     return tree_map(
-        lambda x: _segment_mean(_pad(x, cap - n), seg, num_groups,
-                                pad_mask)[:n], state)
+        lambda x: _segment_mean(_pad(x, cap - n), idx.seg, num_groups,
+                                pad_mask, idx.order)[:n], state)
 
 
 def mar_aggregate_sim(state: Tree, plan: GridPlan,
@@ -168,7 +192,8 @@ def allreduce_all_to_all_sim(state: Tree,
     if mask is None:
         mask = _ones_mask(state)
     seg = torch.zeros(mask.shape[0], dtype=torch.int64, device=mask.device)
-    return tree_map(lambda x: _segment_mean(x, seg, 1, mask), state)
+    order = torch.arange(mask.shape[0], device=mask.device)
+    return tree_map(lambda x: _segment_mean(x, seg, 1, mask, order), state)
 
 
 def gossip_aggregate_sim(state: Tree, mask: Optional[torch.Tensor] = None,

@@ -9,13 +9,18 @@ baseline instead (also the only path for the recurrent families, ssm
 and hybrid, whose state cannot be paged: they take fixed-length
 prompts); ``--swap-demo`` performs an identity hot-swap mid-drain. The
 model runs on CUDA (and the command raises where there is no GPU)
-unless ``--device cpu`` is given. The moe family, the frontends and
-``--ckpt-dir`` raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+unless ``--device cpu`` is given. ``--ckpt-dir`` serves the newest
+step of a checkpoint directory (written by either package; a
+peer-stacked FL state is folded to its peer mean) and hot-swaps newer
+steps mid-drain. The frontends raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --sessions 8 --prompt-len 24 --gen 16 --max-batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch moonshot-v1-16b-a3b --vary-prompts --prompt-len 512 \
+      --gen 64 --sessions 16 --max-batch 8 --block-size 16
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, \
     get_smoke_config
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model, resolve_device
-from repro_torch.serve import DecodeServer, ServeConfig, run_sequential
+from repro_torch.serve import (DecodeServer, ServeConfig, run_sequential,
+                               serving_params_from_checkpoint)
 
 PAGED = T.PAGED_FAMILIES
 
@@ -60,7 +66,7 @@ def main(argv=None) -> int:
                     help="one-session-at-a-time dense baseline")
     ap.add_argument("--ckpt-dir", default=None,
                     help="serve (and hot-swap) weights from this "
-                         "checkpoint directory (not ported yet)")
+                         "checkpoint directory")
     ap.add_argument("--swap-demo", action="store_true",
                     help="identity hot-swap mid-drain (zero-drop demo)")
     ap.add_argument("--seed", type=int, default=0)
@@ -69,16 +75,22 @@ def main(argv=None) -> int:
                          "plain versions of the kernels)")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir waits for the port's Checkpointer (ROADMAP.md, "
-            "Queue 1 item 10)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     T.check_supported(cfg)
     device = resolve_device(args.device)
     model = Model(cfg)
     rng = np.random.default_rng(args.seed)
     params = model.init(args.seed, device=device)
+
+    ckpt = None
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import Checkpointer
+        ckpt = Checkpointer(args.ckpt_dir)
+        if ckpt.latest_step() is not None:
+            state, meta = ckpt.restore(device="cpu")
+            params = serving_params_from_checkpoint(state, params)
+            print(f"[serve] restored step {ckpt.latest_step()} "
+                  f"from {args.ckpt_dir} (meta: {meta})")
 
     paged = cfg.family in PAGED and not args.sequential
     if not paged and args.vary_prompts and cfg.family not in PAGED:
@@ -104,6 +116,8 @@ def main(argv=None) -> int:
                        num_blocks=num_blocks, pad_len=args.prompt_len,
                        max_new=args.gen)
     srv = DecodeServer(model, params, scfg)
+    if ckpt is not None:
+        srv.attach_checkpointer(ckpt, params)
     for p in prompts:
         srv.enqueue(p)
     print(f"[serve] engine on {device}: {args.sessions} sessions, pool "

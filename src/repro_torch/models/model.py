@@ -1,7 +1,8 @@
 """Model facade: one object per architecture config.
 
 Port of the JAX package's ``repro/models/model.py`` for the families
-the port takes (dense, ssm, hybrid; see ``transformer.check_supported``).
+the port takes (dense, moe, ssm, hybrid; see
+``transformer.check_supported``).
 ``Model.init`` runs on CUDA unless the caller asks for another device,
 and raises where there is no GPU. Caches are made on the device the
 caller names (the serving engine passes its parameters' device).

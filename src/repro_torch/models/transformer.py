@@ -7,6 +7,8 @@ decoder is a Python loop over the layer views ``leaf[i]`` (the
 reference's ``lax.scan``). Heterogeneous families use *periodic groups*:
 
 * dense           : one run of L attention blocks, ``blocks`` [L, ...]
+* moe             : one run of L (attention + MoE-FFN) blocks,
+                    ``blocks`` [L, ...] with ``moe`` in place of ``mlp``
 * ssm (xlstm)     : G groups of (p-1 mLSTM + 1 sLSTM), p = slstm_every;
                     ``blocks.mlstm`` [G, p-1, ...], ``blocks.slstm``
                     [G, ...]
@@ -15,8 +17,8 @@ reference's ``lax.scan``). Heterogeneous families use *periodic groups*:
                     ``shared_attn`` reused by every group
 
 KV caches, recurrent states and the paged pool are updated in place.
-The moe family and the modality frontends raise ``NotImplementedError``
-naming their ROADMAP.md item.
+The modality frontends raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -27,25 +29,21 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.tree import Tree, tree_map
 
 Tensor = torch.Tensor
 
-#: families whose backbone is a run of attention + MLP blocks
-DENSE_FAMILIES = ("dense", "vlm", "audio")
+#: families whose backbone is a run of attention + FFN blocks with a KV
+#: cache (moe: the FFN is the MoE block)
+DENSE_FAMILIES = ("dense", "vlm", "audio", "moe")
 #: families whose decode state is recurrent (no pageable KV cache)
 RECURRENT_FAMILIES = ("ssm", "hybrid")
-#: families the port does not take yet, with the ROADMAP.md item that does
-UNPORTED_FAMILIES = {"moe": "Queue 1 item 9"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not take."""
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md, {UNPORTED_FAMILIES[cfg.family]})")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"the {cfg.frontend} frontend ({cfg.name}) is not ported yet "
@@ -91,10 +89,14 @@ def _stack(n: int, init_fn: Callable[[], Tree]) -> Tree:
 
 def _attn_mlp_init(gen: torch.Generator, cfg: ModelConfig) -> Tree:
     dt, d, dev = L.torch_dtype(cfg), cfg.d_model, gen.device
-    return {"norm1": L.rmsnorm_init(d, dt, dev),
-            "attn": L.attention_init(gen, cfg),
-            "norm2": L.rmsnorm_init(d, dt, dev),
-            "mlp": L.mlp_init(gen, cfg)}
+    block = {"norm1": L.rmsnorm_init(d, dt, dev),
+             "attn": L.attention_init(gen, cfg),
+             "norm2": L.rmsnorm_init(d, dt, dev)}
+    if cfg.family == "moe":
+        block["moe"] = M.moe_init(gen, cfg)
+    else:
+        block["mlp"] = L.mlp_init(gen, cfg)
+    return block
 
 
 def _cell_init(gen: torch.Generator, cfg: ModelConfig, init_fn) -> Tree:
@@ -131,15 +133,27 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Tree]:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn(bp: Tree, hin: Tensor, cfg: ModelConfig) -> Tensor:
+    """The block's FFN: the MoE block where the block has one."""
+    if "moe" in bp:
+        return M.moe_block(bp["moe"], hin, cfg)
+    return L.mlp_block(bp["mlp"], hin)
+
+
 def _attn_mlp_block(bp: Tree, h: Tensor, cfg: ModelConfig,
-                    positions: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+                    positions: Tensor
+                    ) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor]]:
+    """(h, k, v, aux): aux is the MoE load-balance loss, None without
+    MoE."""
     hn = L.rmsnorm(h, bp["norm1"], cfg.norm_eps)
     q, k, v = L._qkv(bp["attn"], hn, cfg, positions)
     att = L.attention_impl(q, k, v, cfg)
     b, s = h.shape[:2]
     h = h + att.reshape(b, s, -1) @ bp["attn"]["wo"]
     hin = L.rmsnorm(h, bp["norm2"], cfg.norm_eps)
-    return h + L.mlp_block(bp["mlp"], hin), k, v
+    aux = M.load_balance_loss(bp["moe"], hin.reshape(-1, cfg.d_model),
+                              cfg) if "moe" in bp else None
+    return h + _ffn(bp, hin, cfg), k, v, aux
 
 
 def _forward_ssm(params: Tree, h: Tensor, cfg: ModelConfig,
@@ -189,7 +203,7 @@ def _forward_hybrid(params: Tree, h: Tensor, cfg: ModelConfig,
             h = h + y
             ss.append(hf)
             cs.append(ctail)
-        h, k, v = _attn_mlp_block(shared, h, cfg, positions)
+        h, k, v, _ = _attn_mlp_block(shared, h, cfg, positions)
         if collect_cache:
             sstates.append(torch.stack(ss))
             convs.append(torch.stack(cs))
@@ -207,10 +221,11 @@ def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
             collect_cache: bool = False):
     """tokens: [b, s]. Returns (logits [b, s, V] f32, aux_loss, cache).
 
-    ``aux_loss`` is 0 (no MoE here). With ``collect_cache`` the cache is,
-    besides ``"pos": [b] int32``: dense ``{"k", "v": [L, b, s, kvh,
-    hd]}``; ssm ``{"mlstm", "slstm"}``; hybrid ``{"ssm", "conv",
-    "attn_k", "attn_v"}`` (see :func:`init_cache`).
+    ``aux_loss`` is the sum over layers of the MoE load-balance loss (0
+    without MoE). With ``collect_cache`` the cache is, besides ``"pos":
+    [b] int32``: dense and moe ``{"k", "v": [L, b, s, kvh, hd]}``; ssm
+    ``{"mlstm", "slstm"}``; hybrid ``{"ssm", "conv", "attn_k",
+    "attn_v"}`` (see :func:`init_cache`).
     """
     check_supported(cfg)
     if prefix_embeds is not None:
@@ -219,6 +234,7 @@ def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
     b, s = tokens.shape
     h = L.embed(params["embedding"], tokens)
     positions = torch.arange(s, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
         h, cache = _forward_ssm(params, h, cfg, collect_cache)
     elif cfg.family == "hybrid":
@@ -227,7 +243,10 @@ def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
         blocks = params["blocks"]
         ks, vs = [], []
         for i in range(cfg.num_layers):
-            h, k, v = _attn_mlp_block(layer(blocks, i), h, cfg, positions)
+            h, k, v, a = _attn_mlp_block(layer(blocks, i), h, cfg,
+                                         positions)
+            if a is not None:
+                aux = aux + a
             if collect_cache:
                 ks.append(k)
                 vs.append(v)
@@ -238,7 +257,6 @@ def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
                                   device=h.device)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embedding"], h, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return logits, aux, cache
 
 
@@ -250,7 +268,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> Tree:
     """Zeroed decode cache (family-dependent, as the reference's):
 
-    * dense: ``k``, ``v`` [L, batch, max_len, kvh, hd];
+    * dense and moe: ``k``, ``v`` [L, batch, max_len, kvh, hd];
     * ssm: ``mlstm`` [g, p-1, batch, nh, hd, hd+1] f32 and ``slstm``, a
       tuple (h, c, n, m) of [g, batch, d] f32, all zeros as in the
       reference (a prefill starts its carry at m = -1e30 instead; the
@@ -303,8 +321,7 @@ def _decode_layers(params: Tree, h: Tensor, cfg: ModelConfig,
     for i in range(cfg.num_layers):
         bp = layer(blocks, i)
         h = h + attend(bp["attn"], L.rmsnorm(h, bp["norm1"], cfg.norm_eps), i)
-        h = h + L.mlp_block(bp["mlp"], L.rmsnorm(h, bp["norm2"],
-                                                 cfg.norm_eps))
+        h = h + _ffn(bp, L.rmsnorm(h, bp["norm2"], cfg.norm_eps), cfg)
     return _logits(params, h, cfg)
 
 
@@ -388,7 +405,7 @@ def prefill_cache_to_decode(cache: Tree, cfg: ModelConfig, max_len: int,
     """Convert a ``forward(collect_cache=True)`` cache into the decode
     layout of ``init_cache(cfg, b, max_len)`` — no prompt replay.
 
-    * dense: pad the KV seq axis out to ``max_len``.
+    * dense and moe: pad the KV seq axis out to ``max_len``.
     * ssm: states are O(1) and already decode-shaped — pass through.
     * hybrid: conv/ssm states pass through; the sliding-window KV kept by
       forward (last ``w_f = min(window, s)`` positions, in position
@@ -433,7 +450,7 @@ def prefill_cache_to_decode(cache: Tree, cfg: ModelConfig, max_len: int,
 # Paged decode (serving tier)
 # ---------------------------------------------------------------------------
 
-PAGED_FAMILIES = ("dense",)
+PAGED_FAMILIES = ("dense", "moe")
 
 
 def _check_paged(cfg: ModelConfig) -> None:

@@ -23,9 +23,8 @@ swapped in between steps without dropping in-flight sessions.
   prefill on the card).
 * Hot-swap — ``swap_params`` installs new weights between steps;
   ``serving_params_from_checkpoint`` folds a peer-stacked FL checkpoint
-  into serving weights (the peer mean). Polling a ``Checkpointer``
-  (``attach_checkpointer``) waits for the port's checkpoints
-  (ROADMAP.md, Queue 1 item 10).
+  into serving weights (the peer mean); ``attach_checkpointer`` polls
+  a ``Checkpointer`` between steps and swaps in every newer step.
 """
 from __future__ import annotations
 
@@ -153,6 +152,7 @@ class DecodeServer:
         self.prefill_count = 0
         self.decode_steps = 0
         self.swap_log: List[Dict[str, Any]] = []
+        self._watch: Optional[Dict[str, Any]] = None
 
         mb, tw = cfg.max_batch, cfg.table_width
         self._free_rows = list(range(mb - 1, -1, -1))
@@ -264,14 +264,32 @@ class DecodeServer:
 
     def attach_checkpointer(self, ckpt: Any, template: Tree,
                             every: int = 8) -> None:
-        raise NotImplementedError(
-            "polling a checkpoint directory waits for the port's "
-            "Checkpointer (ROADMAP.md, Queue 1 item 10)")
+        """Poll ``ckpt`` (a ``Checkpointer``) every ``every`` engine
+        steps; any newer step is restored, peer-folded onto
+        ``template``'s device and dtypes, and swapped in."""
+        self._watch = {"ckpt": ckpt, "template": template, "every": every,
+                       "seen": ckpt.latest_step()}
+
+    def _maybe_swap(self) -> None:
+        w = self._watch
+        if w is None or self.engine_step % w["every"]:
+            return
+        step = w["ckpt"].poll(w["seen"])
+        if step is None:
+            return
+        # restored on the host, where the arrays arrive from disk; the
+        # fold moves each leaf to the template's device
+        state, _ = w["ckpt"].restore(step, device="cpu")
+        self.swap_params(
+            serving_params_from_checkpoint(state, w["template"]),
+            tag=f"ckpt:{step}")
+        w["seen"] = step
 
     # -- engine loop -----------------------------------------------------
     def step(self) -> bool:
         """Admit, run one batched decode step, evict finished sessions.
         Returns False once the engine is fully drained."""
+        self._maybe_swap()
         self._admit()
         if not self.running:
             return bool(self.queue)

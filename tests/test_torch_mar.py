@@ -227,3 +227,22 @@ def test_kernel_round_bf16_leaf_matches_reference(rnd):
                                np.asarray(ref["h"], np.float32),
                                atol=2e-2, rtol=0)
     assert torch.equal(port["h"][peers], h_t[peers])
+
+
+@pytest.mark.parametrize("n,dims,rnd", [(27, (3, 3, 3), 1),
+                                        (13, (2, 2, 2, 2), 2),
+                                        (26, (3, 3, 3), 0), (125, (125,), 0)])
+def test_group_sums_are_the_index_add_sums(n, dims, rnd):
+    """The card's kernel-off route sums each group's rows after
+    gathering them by the round's order (``index_add_``'s atomics add in
+    another order on every run there); on the same rows it gives the
+    CPU's ``index_add_`` sums, every group's rows ascending."""
+    plan = GridPlan(n, dims)
+    idx = mar_allreduce.round_index(plan, rnd, torch.device("cpu"))
+    cap, groups = plan.capacity, plan.capacity // plan.dims[rnd]
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(cap, 5, 3)).astype(np.float32))
+    assert bool((idx.order.reshape(groups, -1).diff(dim=1) > 0).all())
+    want = torch.zeros((groups, 5, 3)).index_add_(0, idx.seg, x)
+    got = mar_allreduce._group_sums(x, idx.order, groups)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

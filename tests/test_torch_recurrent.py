@@ -251,12 +251,20 @@ def test_recurrent_families_rejected_where_the_reference_rejects(arch):
                                 torch.zeros(1), )
 
 
-def test_moe_keeps_its_roadmap_item():
+def test_moe_takes_the_paged_path_the_recurrent_families_refuse():
+    """moe (once refused here with its ROADMAP.md item) has a paged pool
+    and a paged decode step that continues a prefill."""
     cfg = get_smoke_config("moonshot-v1-16b-a3b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        T.init_paged_cache(cfg, 3, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Model(cfg).init(seed=0, device="cpu")
+    model = Model(cfg)
+    params = model.init(seed=0, device="cpu")
+    pages = T.init_paged_cache(cfg, 3, 4, "cpu")
+    assert pages["k_pages"].dtype == torch.bfloat16
+    logits, pages = model.paged_decode_step(
+        params, pages, torch.tensor([[1, 2]], dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), torch.tensor([5]))
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert pages["k_pages"][:, 1, 0].abs().sum() > 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)

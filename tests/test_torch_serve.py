@@ -16,12 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint.checkpointer import Checkpointer as RefCheckpointer
 from repro.configs.registry import get_smoke_config as ref_smoke_config
 from repro.models.model import Model as RefModel
 from repro.serve import DecodeServer as RefDecodeServer
 from repro.serve import ServeConfig as RefServeConfig
 
 from repro_torch import convert
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.model import Model
@@ -252,12 +254,68 @@ def test_serving_params_peer_mean(dense):
         assert torch.equal(a, b)
 
 
-def test_checkpoint_polling_waits_for_checkpointer(dense):
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_attach_checkpointer_swaps_mid_drain(dense, tmp_path, writer):
+    """The watcher restores every newer step between decode steps and
+    swaps it in with no session dropped, as the reference's engine does
+    (``tests/test_serve.py``); the installed weights are the step's peer
+    mean, bit for bit what ``serving_params_from_checkpoint`` makes on
+    the CPU, whichever package wrote the directory."""
     model, params, _, _ = dense
-    srv = DecodeServer(model, params, ServeConfig(num_blocks=20,
-                                                  pad_len=12, max_new=4))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        srv.attach_checkpointer(object(), params)
+    other = tree_map(lambda x: x * 1.5 + 0.01, params)
+    scfg = ServeConfig(max_batch=2, block_size=4, num_blocks=20,
+                       pad_len=12, max_new=MAX_NEW)
+    prompts = _prompts(model.cfg.vocab_size, 4, seed=4)
+    ckpt = (Checkpointer if writer == "port" else RefCheckpointer)(
+        str(tmp_path), keep=2)
+
+    def save(step, tree):
+        state = {"params": tree_map(lambda x: torch.stack([x, 3 * x]), tree),
+                 "momentum": tree_map(torch.zeros_like, tree)}
+        if writer == "reference":
+            state = jax.tree.map(jnp.asarray, convert.params_to_numpy(state))
+        ckpt.save(step, state, metadata={"n_peers": 2})
+
+    save(1, params)
+    srv = DecodeServer(model, params, scfg)
+    srv.attach_checkpointer(Checkpointer(str(tmp_path)), params, every=1)
+    for p in prompts:
+        srv.enqueue(p)
+    for _ in range(2):
+        srv.step()
+    assert not srv.swap_log                        # step 1 already seen
+    save(2, other)
+    srv.run()
+    srv.assert_quiescent()
+    assert len(srv.finished) == len(prompts)
+    assert all(len(s.generated) == MAX_NEW for s in srv.finished)
+    (entry,) = srv.swap_log
+    assert entry["tag"] == "ckpt:2" and entry["in_flight"]
+    state, _ = Checkpointer(str(tmp_path)).restore(2, device="cpu")
+    want = serving_params_from_checkpoint(state, params)
+    for a, b in zip(tree_leaves(srv.params), tree_leaves(want)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(srv.params), tree_leaves(other)):
+        torch.testing.assert_close(a, 2 * b, rtol=0, atol=1e-6)
+
+
+def test_attach_checkpointer_polls_every_n_steps(dense, tmp_path):
+    model, params, _, _ = dense
+    ckpt = Checkpointer(str(tmp_path))
+    srv = DecodeServer(model, params, ServeConfig(num_blocks=20, pad_len=12,
+                                                  max_new=4))
+    srv.attach_checkpointer(ckpt, params, every=3)
+    for p in _prompts(model.cfg.vocab_size, 2, seed=6):
+        srv.enqueue(p)
+    srv.step()                                  # step 0 polls: nothing
+    ckpt.save(7, {"params": params})
+    srv.step()
+    srv.step()                                  # steps 1, 2 do not poll
+    assert not srv.swap_log
+    srv.step()                                  # step 3 polls
+    assert [e["tag"] for e in srv.swap_log] == ["ckpt:7"]
+    srv.run()
+    srv.assert_quiescent()
 
 
 # ---------------------------------------------------------------------------
@@ -265,18 +323,27 @@ def test_checkpoint_polling_waits_for_checkpointer(dense):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "moonshot-v1-16b-a3b"])
-def test_unported_families_rejected(arch):
-    """moe is not ported (its ROADMAP.md item); a recurrent family is,
-    but the engine refuses it and run_sequential refuses a prompt
-    shorter than pad_len, as the reference does (ValueError)."""
+def test_engine_takes_moe_and_refuses_recurrent_families(arch):
+    """moe serves through the engine and run_sequential; a recurrent
+    family is refused by the engine, and run_sequential refuses its
+    prompt shorter than pad_len, as the reference does (ValueError)."""
     cfg = get_smoke_config(arch)
-    err, match = ((NotImplementedError, "ROADMAP.md") if cfg.family == "moe"
-                  else (ValueError, "KV-cache|pad_len"))
-    with pytest.raises(err, match=match):
-        DecodeServer(Model(cfg), {"x": torch.zeros(1)}, ServeConfig())
-    with pytest.raises(err, match=match):
-        run_sequential(Model(cfg), {"x": torch.zeros(1)}, [[1, 2]],
-                       max_new=2, pad_len=4)
+    model = Model(cfg)
+    params = model.init(seed=0, device="cpu")
+    if cfg.family == "moe":
+        srv = DecodeServer(model, params, ServeConfig(
+            num_blocks=9, block_size=4, pad_len=4, max_new=2))
+        srv.enqueue([1, 2])
+        srv.run()
+        srv.assert_quiescent()
+        (seq,) = run_sequential(model, params, [[1, 2]], max_new=2,
+                                pad_len=4)
+        assert srv.finished[0].generated == seq.generated
+        return
+    with pytest.raises(ValueError, match="KV-cache"):
+        DecodeServer(model, params, ServeConfig())
+    with pytest.raises(ValueError, match="pad_len"):
+        run_sequential(model, params, [[1, 2]], max_new=2, pad_len=4)
 
 
 def test_cli_serves_on_cpu(capsys):
@@ -297,11 +364,35 @@ def test_cli_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
         serve_cli.main(["--smoke"])
 
 
-@pytest.mark.parametrize("argv", [["--ckpt-dir", "x"],
-                                  ["--arch", "kimi-k2-1t-a32b"]])
-def test_cli_unported_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve_cli.main(["--smoke", "--device", "cpu", *argv])
+@pytest.mark.parametrize("case", ["ckpt_dir", "kimi"])
+def test_cli_serves_ckpt_dir_and_the_moe_smoke_configs(case, tmp_path,
+                                                       capsys):
+    """``--ckpt-dir`` restores the newest step of a directory the
+    reference wrote (an FL state, folded to its peer mean) and serves it
+    with the watcher attached; ``--arch kimi-k2-1t-a32b --smoke`` serves
+    the trillion-parameter family's smoke config on the CPU."""
+    argv = ["--smoke", "--device", "cpu", "--sessions", "3",
+            "--vary-prompts", "--gen", "4", "--max-batch", "2"]
+    if case == "kimi":
+        assert serve_cli.main([*argv, "--arch", "kimi-k2-1t-a32b"]) == 0
+        assert "continuous: 3 sessions, 12 tokens" in capsys.readouterr().out
+        return
+    ref_model = RefModel(ref_smoke_config("starcoder2-3b"))
+    ref_params = ref_model.init(jax.random.PRNGKey(5))
+    RefCheckpointer(str(tmp_path)).save(
+        4, {"params": jax.tree.map(lambda x: jnp.stack([x, x]), ref_params)},
+        metadata={"n_peers": 2})
+    assert serve_cli.main([*argv, "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "restored step 4" in out and "'n_peers': 2" in out
+    assert "continuous: 3 sessions, 12 tokens" in out
+    assert "0 hot-swaps" in out
+
+
+def test_cli_frontends_keep_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        serve_cli.main(["--smoke", "--device", "cpu", "--arch",
+                        "pixtral-12b"])
 
 
 def test_engine_pool_lives_on_the_params_device(dense):
