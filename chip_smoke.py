@@ -157,16 +157,43 @@ Phases, each printing JSON lines:
                 in mid-drain (``ckpt:2``) with no session dropped, its
                 weights bit for bit the peer mean
                 ``serving_params_from_checkpoint`` makes on the CPU.
-15. kernels   — one JSON object per kernel: launches on its main path
+15. train     — the published musicgen-medium (48 layers, d 1536, 24
+                MHA heads of 64, gated FFN 6144, vocab 2048, bf16;
+                1,818,379,776 parameters a peer, drawn on the card from
+                seed 0) trained at full width through
+                ``repro_torch.launch.train.main``: 4 peers on the (2, 2)
+                grid, batch 2 of 128 tokens a peer, one local step, 6
+                steps, the state updated in place. Prints every step's
+                loss and ms, the median ms of steps 2-6, tokens/s and
+                the peak memory; then one more step under
+                ``torch.profiler`` (busy share, launches, host and
+                device ms under ``train.local_update`` and
+                ``train.aggregate``). Gates: finite losses, every peer's
+                theta and m bit-equal after each step, flash launched
+                48 layers x 4 peers x 2 (forward and the remat
+                recompute) a step, the ledger the reference's
+                (TRAIN_COMM_BYTES), the peak under the card's memory.
+16. train_parity — starcoder2-3b's and musicgen-medium's smoke configs
+                (prefix embeddings) at 2 layers in f32: 3 steps of
+                ``make_fl_train_step`` from one theta^0 on the card and
+                on the CPU, full participation and U != A with int8 EF
+                over a bf16 wire: losses within 1e-4, theta within 1e-4
+                (int8: rare one-quantum flips); a ``--resize-at`` CLI
+                run on the card with its survivors bit-exact and the
+                reference's comm line; xlstm-350m refused on the card
+                (the SSD scan kernel is forward-only).
+17. kernels   — one JSON object per kernel: launches on its main path
                 (the group mean's: the federation run's 60, the
                 extension runs' 427 and the smoke figures'; flash's and
-                the paged kernel's include the moonshot run's), max
-                error, times, bound.
+                the paged kernel's include the moonshot run's, flash's
+                the training run's too), max error, times, bound.
 
 Phase 4 also runs the flash kernel at zamba2's shared-attention shape
 (s=512, h=kvh=32, d=80, bf16), flash and the paged kernel at
 moonshot's (h=kvh=16, d=128: one query head per kv head, g=1) in bf16
-and f32, and an ``ssd_scan`` phase holds the
+and f32, flash at the trainer's shape (row 2t: b=2, s=128, h=kvh=24,
+d=64, bf16) with the plain backward's time beside SDPA's backward (not
+gated), and an ``ssd_scan`` phase holds the
 SSD-scan kernel against its plain sequential version at both families'
 prefill shapes (zamba2: 80 heads, dk=dv=64, B and C broadcast with a
 head stride of 0, Mamba's decay rates; xlstm: 4 heads, dk 512, dv 513),
@@ -246,6 +273,44 @@ MAIN_PATH_D = (98304, 128, 2560, 20)    # fc1.w, fc1.b, fc2.w, fc2.b
 # 1e-4 of it); theirs is printed, and every run's kernel is held against
 # the kernel-off route on the same inputs in every aggregation instead
 KERNEL_OFF_GATED = ("async", "elastic")
+# The LM trainer (repro_torch.launch.train): the comm-total line the
+# reference prints for each CPU CLI case (tools/reference_constants.py's
+# TRAIN_CLI_CASES, "--smoke --steps 3 --peers 4 --seq 32" plus the
+# case's flags), and the ledger's total bytes of the full-width chip run
+# below (musicgen-medium, 4 peers, 6 steps: 10,910,287,872 bytes of
+# theta and m per peer), both from the JAX package on the CPU through
+# tools/reference_constants.py
+TRAIN_CLI_COMM = {
+    "starcoder2-3b default": "[train] comm total=99.3MB agg/mar=99.3MB",
+    "starcoder2-3b sessions": "[train] comm total=66.2MB agg/mar=66.2MB",
+    "starcoder2-3b wireless": "[train] comm total=99.3MB agg/mar=99.3MB "
+                              "comm_s=21.28 [simulated (wireless)]",
+    "starcoder2-3b resize": "[train] comm total=74.4MB agg/mar=74.4MB",
+    "musicgen-medium default": "[train] comm total=113.4MB "
+                               "agg/mar=113.4MB",
+    "musicgen-medium sessions": "[train] comm total=75.6MB agg/mar=75.6MB",
+    "musicgen-medium wireless": "[train] comm total=113.4MB "
+                                "agg/mar=113.4MB comm_s=24.30 "
+                                "[simulated (wireless)]",
+    "musicgen-medium resize": "[train] comm total=85.1MB agg/mar=85.1MB",
+}
+TRAIN_CLI_BASE = ("--smoke", "--steps", "3", "--peers", "4", "--seq", "32")
+TRAIN_CLI_CASES = {"default": (), "sessions": ("--churn", "sessions"),
+                   "wireless": ("--link-profile", "wireless",
+                                "--link-loss", "0.1"),
+                   "resize": ("--resize-at", "2:2")}
+TRAIN_COMM_BYTES = 523_693_817_856
+TRAIN_ARGS = ("--arch", "musicgen-medium", "--peers", "4", "--batch", "2",
+              "--seq", "128", "--local-steps", "1", "--steps", "6",
+              "--seed", "0")
+TRAIN_PARAMS = 1_818_379_776     # the reference's ModelConfig.param_count()
+TRAIN_LAYERS = 48
+# flash launches a step: every attention layer of every peer runs the
+# forward kernel once in the forward and once more when the backward
+# recomputes its block (cfg.remat == "block"); local steps and
+# microbatches are 1
+TRAIN_FLASH_PER_STEP = TRAIN_LAYERS * 4 * 2
+TRAIN_TOKENS_PER_STEP = 4 * 2 * 128
 
 
 def emit(phase: str, **fields) -> None:
@@ -1014,6 +1079,7 @@ def phase_profile(torch):
 STARCODER = dict(h=24, kvh=2, d=128)            # starcoder2-3b attention
 ZAMBA2_ATTN = dict(h=32, kvh=32, d=80)          # zamba2-2.7b shared block
 MOONSHOT_ATTN = dict(h=16, kvh=16, d=128)       # moonshot-v1-16b-a3b (g=1)
+TRAIN_ATTN = dict(h=24, kvh=24, d=64)           # musicgen-medium (g=1)
 SERVE = dict(max_batch=8, block_size=16, pad_len=512, max_new=64,
              sessions=16)
 SERVE_LAYERS = 30
@@ -1113,7 +1179,60 @@ def phase_flash(torch, flush):
         row["lse_max_abs_err"] = lse_err
         rows.append(row)
         emit("flash_attention", **row)
+    rows.append(_flash_train_row(torch, flush, gen))
     return rows
+
+
+def _flash_train_row(torch, flush, gen):
+    """Row 2t: the kernel at the trainer's shape (musicgen-medium: b=2,
+    s=128, h=kvh=24, d=64, bf16), gated as the other rows; beside it,
+    for information, the plain backward (``attention_flash.flash_bwd``,
+    the reference's blockwise recompute) against SDPA's backward on the
+    same inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.attention_flash import flash_bwd
+
+    b, s, dtype = 2, 128, torch.bfloat16
+    h, kvh, d = TRAIN_ATTN["h"], TRAIN_ATTN["kvh"], TRAIN_ATTN["d"]
+    q, k, v = (torch.randn((b, s, n, d), generator=gen,
+                           device="cuda").to(dtype) for n in (h, kvh, kvh))
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, True)
+    torch.cuda.synchronize()
+    tol = _tol(torch, dtype)
+    err = float((o.float() - o_ref.float()).abs().max())
+    lse_err = float((lse - lse_ref).abs().max())
+    check(err <= tol and lse_err <= tol,
+          f"flash 2t: o err {err}, lse err {lse_err} > {tol}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = s * (s + 1) // 2
+    bound = attention_bound_ms(_nbytes(q, k, v, o, lse),
+                               4 * b * h * d * pairs, True)
+    row = _row("train", dtype, err, tol,
+               device_ms(torch, lambda: fa.flash_attention_fwd(
+                   q, k, v, True), flush=flush),
+               device_ms(torch, lambda: flash_attention_ref(
+                   q, k, v, True), flush=flush),
+               device_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True), flush=flush),
+               bound, b=b, s=s, h=h, kvh=kvh, d=d)
+    row["lse_max_abs_err"] = lse_err
+    lse4 = lse.view(b, kvh, h // kvh, s)
+    row["plain_backward_ms"] = device_ms(
+        torch, lambda: flash_bwd(q, k, v, o, lse4, do, True), flush=flush)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    dot = do.transpose(1, 2)
+    row["sdpa_backward_ms"] = device_ms(
+        torch, lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
+                                           retain_graph=True),
+        flush=flush)
+    emit("flash_attention", **row)
+    return row
 
 
 def _decode_bytes_flops(q, cache_row_bytes, lengths_host, h, d):
@@ -2123,6 +2242,255 @@ def phase_checkpoint(torch):
     check(swapped, "checkpoint: the swapped weights are not the CPU fold")
 
 
+def _bit_equal_peers(torch, tree_leaves, tree) -> bool:
+    """Every peer's slice of every leaf equal to peer 0's, bit for bit."""
+    return all(torch.equal(x[i], x[0]) for x in tree_leaves(tree)
+               for i in range(1, x.shape[0]))
+
+
+def phase_train(torch, smi):
+    """musicgen-medium at full width through the port's trainer,
+    ``launch.train.main`` in process: 48 layers, d 1536, 24 MHA heads of
+    64, gated FFN 6144, vocab 2048, bf16; 4 peers on the (2, 2) grid,
+    each a materialized copy of 1,818,379,776 parameters (f32 momentum),
+    batch 2 of 128 tokens a peer, one local step, 6 steps, seed 0. After
+    every step every peer's theta and m are bit-equal (full
+    participation over (2, 2) is a global mean broadcast to all); flash
+    launches TRAIN_FLASH_PER_STEP times a step; the ledger is the
+    reference's. Then one more step under ``torch.profiler``."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fl_device import SPAN_AGGREGATE, SPAN_LOCAL
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("musicgen-medium")
+    check(cfg.family == "audio" and cfg.num_layers == TRAIN_LAYERS
+          and cfg.dtype == "bfloat16" and cfg.attn_impl == "flash"
+          and cfg.remat == "block" and cfg.param_count() == TRAIN_PARAMS
+          and (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+          == (TRAIN_ATTN["h"], TRAIN_ATTN["kvh"], TRAIN_ATTN["d"]),
+          f"unexpected config {cfg}")
+    steps, seen = [], {}
+
+    def on_step(info):
+        state = info["state"]
+        steps.append({"step": info["t"] + 1,
+                      "loss": float(info["metrics"]["loss"]),
+                      "ms": info["seconds"] * 1e3,
+                      "peers_bit_equal": _bit_equal_peers(
+                          torch, tree_leaves, state["params"])
+                      and _bit_equal_peers(torch, tree_leaves,
+                                           state["momentum"])})
+        emit("train_step", **steps[-1])
+        if info["t"] + 1 < int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1]):
+            return
+        # the main path ends here: read its counts before the extra step
+        seen["launches"] = ops.launch_counts()
+        seen["ledger"] = info["ledger"].total_bytes
+        seen["peak"] = torch.cuda.max_memory_allocated()
+        seen["params_per_peer"] = sum(x[0].numel() for x in
+                                      tree_leaves(state["params"]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            info["step_fn"](state, info["batch"])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        labels = (SPAN_LOCAL, SPAN_AGGREGATE)
+        seen["profile"] = {
+            "local_update": _label_profile(torch, prof, SPAN_LOCAL, 1),
+            "aggregate": _label_profile(torch, prof, SPAN_AGGREGATE, 1),
+            **_device_profile(torch, prof, wall_us, 1, "train profile",
+                              labels=labels)}
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    check(train.main(list(TRAIN_ARGS), on_step=on_step) == 0,
+          "train: main did not return 0")
+    run_s = time.perf_counter() - t0
+    ms = [s["ms"] for s in steps]
+    med = statistics.median(ms[1:])
+    launches = seen["launches"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit("train", arch=cfg.name, args=list(TRAIN_ARGS),
+         params_config=cfg.param_count(),
+         params_per_peer_tree=seen["params_per_peer"],
+         losses=[s["loss"] for s in steps], first_step_ms=ms[0],
+         median_ms_steps_2_6=med,
+         tokens_per_s=TRAIN_TOKENS_PER_STEP / (med / 1e3),
+         peak_memory_bytes=seen["peak"], card_memory_bytes=total,
+         launches=launches, expected_flash=TRAIN_FLASH_PER_STEP * len(steps),
+         comm_total_bytes=seen["ledger"], run_s=run_s, card=smi)
+    emit("train_profile", **seen["profile"], card=smi)
+    check(len(steps) == 6, f"train: {len(steps)} steps ran")
+    check(all(math.isfinite(s["loss"]) for s in steps),
+          f"train: a loss is not finite: {[s['loss'] for s in steps]}")
+    check(all(s["peers_bit_equal"] for s in steps),
+          "train: the peers' theta or m differ after a step")
+    check(launches["flash_attention"] == TRAIN_FLASH_PER_STEP * len(steps),
+          f"train: flash launched {launches['flash_attention']} times, "
+          f"expected {TRAIN_FLASH_PER_STEP * len(steps)}")
+    check(seen["ledger"] == TRAIN_COMM_BYTES,
+          f"train: ledger {seen['ledger']} != the reference's "
+          f"{TRAIN_COMM_BYTES}")
+    check(seen["peak"] < total,
+          f"train: peak {seen['peak']} >= the card's {total}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _parity_batches(np, cfg, n: int, steps: int, prefix: int):
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(steps):
+        toks = rng.integers(0, cfg.vocab_size, (n, 2, 2, 1, 32))
+        b = {"tokens": toks.astype(np.int32),
+             "labels": np.roll(toks, -1, -1).astype(np.int32)}
+        if prefix:
+            b["prefix_embeds"] = rng.normal(
+                size=(n, 2, 2, 1, prefix, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def phase_train_parity(torch):
+    """The trainer's checks at reduced depth: starcoder2-3b's and
+    musicgen-medium's smoke configs (the latter with prefix embeddings)
+    at 2 layers in f32, one theta^0 and one batch stream (2 local steps
+    of 2 microbatches), ``make_fl_train_step`` on the card and on the
+    CPU for 3 steps, under full participation and under U != A masks
+    with int8 EF and a bf16 wire: every loss within 1e-4, the final
+    theta within 1e-4 (with int8, a rounding within the two devices'
+    f32 differences of a half-quantum may become a quantum: such flips
+    <= 0.5% of a leaf and <= 2 quanta of the leaf's largest value). Then
+    a ``--resize-at`` CLI run on the card with the survivors bit-exact
+    across the resize and the reference's comm line, and xlstm-350m's
+    smoke config refused on the card (its scan kernel is forward-only).
+    """
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.aggregation import build_pipeline
+    from repro_torch.core.fl_device import init_fl_state, make_fl_train_step
+    from repro_torch.core.moshpit import plan_grid
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import PREFIX_LEN
+    from repro_torch.tree import tree_leaves
+
+    masks = {1: ([1, 0, 1, 1], [1, 0, 0, 1]), 2: ([1, 1, 1, 1],
+                                                  [1, 1, 0, 1])}
+    for arch in ("starcoder2-3b", "musicgen-medium"):
+        cfg = dataclasses.replace(get_smoke_config(arch), num_layers=2,
+                                  dtype="float32")
+        model = Model(cfg)
+        prefix = PREFIX_LEN.get(cfg.frontend, 0)
+        theta0 = model.init(seed=0, device="cpu")
+        batches = _parity_batches(np, cfg, 4, 3, prefix)
+        for case in ("full", "int8_ef_bf16"):
+            wire = (dict(compress="int8_ef", comm_dtype="bfloat16")
+                    if case != "full" else {})
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                grid = plan_grid(4)
+                pipe = build_pipeline("mar", grid, backend="device", **wire)
+                st = init_fl_state(model, 4, device=dev, pipeline=pipe,
+                                   params=theta0)
+                step = make_fl_train_step(model, grid, lr=0.1,
+                                          pipeline=pipe)
+                losses = []
+                for t, b in enumerate(batches):
+                    mk = {}
+                    if case != "full" and t in masks:
+                        mk = {"mask": torch.tensor(masks[t][0],
+                                                   dtype=torch.float32),
+                              "agg_mask": torch.tensor(
+                                  masks[t][1], dtype=torch.float32)}
+                    st, met = step(st, {k: torch.from_numpy(v)
+                                        for k, v in b.items()}, **mk)
+                    losses.append(float(met["loss"]))
+                runs[dev] = (losses, [x.cpu() for x in
+                                      tree_leaves(st["params"])])
+            loss_err = max(abs(a - b) for a, b in zip(runs["cpu"][0],
+                                                      runs["cuda"][0]))
+            theta_err, flips = 0.0, 0.0
+            for c, g in zip(runs["cpu"][1], runs["cuda"][1]):
+                d = (c - g).abs()
+                theta_err = max(theta_err, float(d.max()))
+                flips = max(flips, float((d > 1e-4).float().mean()))
+                if case == "full":
+                    check(float(d.max()) <= 1e-4,
+                          f"train_parity {arch} {case}: theta {d.max()}")
+                else:
+                    check(flips <= 5e-3 and float(d.max())
+                          <= 1e-4 + 2 * float(c.abs().max()) / 127,
+                          f"train_parity {arch} {case}: theta "
+                          f"{float(d.max())}, flips {flips}")
+            emit("train_parity", arch=cfg.name, layers=2, case=case,
+                 losses_cpu=runs["cpu"][0], losses_cuda=runs["cuda"][0],
+                 loss_max_abs_err=loss_err, theta_max_abs_err=theta_err,
+                 theta_flip_share=flips, prefix=prefix)
+            check(loss_err <= 1e-4,
+                  f"train_parity {arch} {case}: loss err {loss_err}")
+
+    # --resize-at on the card: survivors bit-exact, the reference's line
+    seen = []
+    real = train.apply_membership
+
+    def spy(state, change, pipeline=None):
+        before = [x.clone() for x in tree_leaves(state["params"])
+                  + tree_leaves(state["momentum"])]
+        out = real(state, change, pipeline)
+        after = tree_leaves(out[0]["params"]) \
+            + tree_leaves(out[0]["momentum"])
+        seen.append(all(torch.equal(a[j], b[int(s)])
+                        for a, b in zip(after, before)
+                        for j, s in enumerate(change.survivors)))
+        return out
+
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    train.apply_membership = spy
+    try:
+        with contextlib.redirect_stdout(buf):
+            train.main(["--arch", "starcoder2-3b", *TRAIN_CLI_BASE,
+                        *TRAIN_CLI_CASES["resize"]])
+    finally:
+        train.apply_membership = real
+    line = next(ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("[train] comm total="))
+    emit("train_resize", survivors_bit_exact=seen, comm_line=line)
+    check(seen == [True], f"train_resize: survivors {seen}")
+    check(line == TRAIN_CLI_COMM["starcoder2-3b resize"],
+          f"train_resize: {line!r} is not the reference's")
+
+    # the recurrent families cannot train on the card yet
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train.main(["--arch", "xlstm-350m", "--smoke", "--steps", "1",
+                        "--peers", "2", "--seq", "32"])
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    emit("train_refuses_ssm", arch="xlstm-350m", message=refused)
+    check("ssd_scan" in refused and "Queue 1 item 19" in refused,
+          f"train: xlstm-350m trained on the card: {refused!r}")
+
+
 def ptxas_summary(report: dict, sources) -> list:
     """Registers, spill bytes and static shared memory of every kernel
     the named sources compiled, read from nvcc's ``-Xptxas -v`` log
@@ -2229,6 +2597,8 @@ def main() -> None:
     moe_launches = phase_serve_moe(torch, smi)
     phase_serve_moe_parity(torch)
     phase_checkpoint(torch)
+    train_launches = phase_train(torch, smi)
+    phase_train_parity(torch)
 
     # group_mean: the round row of the main path (the quickstart's theta
     # and m, N=27, round 0, one launch), its error the largest over the
@@ -2238,7 +2608,8 @@ def main() -> None:
     # serving-path) row; ssd_scan: its first (zamba2, bf16) row.
     # Launches: each path's count, read right after it ran, summed over
     # the paths a kernel lies on (flash: starcoder2, zamba2 and moonshot
-    # prefills; paged: starcoder2 and moonshot decode steps)
+    # prefills and the musicgen training steps; paged: starcoder2 and
+    # moonshot decode steps)
     qs = [r for r in round_rows if r["kind"] == "quickstart"]
     print(json.dumps({"kernels": [
         {**kernel_entry("group_mean",
@@ -2252,7 +2623,8 @@ def main() -> None:
                      "src/repro/kernels/flash_attention.py:76",
                      serve_launches["flash_attention"]
                      + recurrent_launches["flash_attention"]
-                     + moe_launches["flash_attention"], flash_rows[0]),
+                     + moe_launches["flash_attention"]
+                     + train_launches["flash_attention"], flash_rows[0]),
         kernel_entry("paged_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/paged_attention.py:76",

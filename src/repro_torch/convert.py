@@ -5,7 +5,9 @@ nested dicts of tensors with the same keys and the same layout (dense
 ``w`` is ``[n_in, n_out]``, conv kernels HWIO, a transformer's
 ``blocks`` leaves stacked on a leading ``[L]`` axis), so the carry-over
 is the identity on arrays. The reference side hands over numpy arrays
-(``np.asarray`` of each leaf), so this module needs no JAX.
+(``np.asarray`` of each leaf), so this module needs no JAX. A whole FL
+state crosses the same way: peer-stacked params, f32 momentum, the
+int32 ``step`` (a 0-d array) and the wire stages' ``pipe`` state.
 
 bfloat16 crosses bit for bit without ``ml_dtypes``: numpy has no
 bfloat16 of its own, so a JAX bf16 leaf arrives as an array whose

@@ -1,12 +1,16 @@
 """Aggregation: the Aggregator registry, wire stages, the CommLedger and
 the pipeline.
 
-Port of the JAX package's ``repro/core/aggregation.py`` (sim backend):
+Port of the JAX package's ``repro/core/aggregation.py``:
 
 * :class:`Aggregator` — *what* consensus is computed. A registry maps
   technique names (``mar``, ``fedavg``, ``ar``, ``rdfl``, ``gossip``,
   ``hierarchical``) to callables ``(state, mask) -> state`` over
-  peer-stacked trees of tensors (sim backend, ``mar_allreduce.py``).
+  peer-stacked trees of tensors (``mar_allreduce.py``). The MAR entry
+  spans both backends: the sim backend's segment means and the device
+  backend's grid-reshape means (``backend="device"``, with ``one_shot``
+  and ``comm_dtype``), which write the aggregate into the input leaves:
+  at full width the state fits on the card only once.
 * :class:`CommLedger` — *how many bytes (and simulated seconds)* moved.
   Every aggregator unrolls itself into a per-round message plan
   (``core/transport.py``); the network simulator
@@ -117,14 +121,25 @@ def make_aggregator(name: str, plan: GridPlan, **kwargs: Any) -> "Aggregator":
 
 class Aggregator:
     """A consensus strategy: ``(state, mask) -> state`` plus its
-    analytic byte cost. Subclasses set ``name`` (the registry key)."""
+    analytic byte cost. Subclasses set ``name`` (the registry key) and
+    ``supports_device`` when the strategy has a device backend."""
 
     name: str = "?"
+    supports_device: bool = False
 
     def __init__(self, plan: GridPlan, num_rounds: Optional[int] = None,
+                 backend: str = "sim", one_shot: bool = False,
+                 comm_dtype: Optional[str] = None,
                  use_kernel: bool = False):
+        if backend not in ("sim", "device"):
+            raise ValueError(backend)
+        if backend == "device" and not self.supports_device:
+            raise ValueError(f"{self.name!r} has no device backend")
         self.plan = plan
         self.num_rounds = num_rounds
+        self.backend = backend
+        self.one_shot = one_shot
+        self.comm_dtype = comm_dtype
         self.use_kernel = use_kernel
 
     def __call__(self, state: Tree, mask: torch.Tensor) -> Tree:
@@ -159,13 +174,23 @@ class Aggregator:
 
 @register_aggregator
 class MarAggregator(Aggregator):
-    """Moshpit All-Reduce over a :class:`GridPlan` (the paper): masked
-    segment means over the stacked peer axis, one per round."""
+    """Moshpit All-Reduce over a :class:`GridPlan` (the paper).
+
+    ``backend="sim"`` runs masked segment means over the stacked peer
+    axis, one per round; ``backend="device"`` reshapes the peer axis onto
+    the grid and takes each round's masked mean over one grid axis, in
+    place, with ``one_shot`` / ``comm_dtype`` as the beyond-paper
+    knobs."""
 
     name = "mar"
+    supports_device = True
 
     def __call__(self, state: Tree, mask: torch.Tensor) -> Tree:
         from repro_torch.core import mar_allreduce as mar
+        if self.backend == "device":
+            return mar.mar_aggregate_device(
+                state, self.plan, mask, one_shot=self.one_shot,
+                comm_dtype=self.comm_dtype)
         return mar.mar_aggregate_sim(state, self.plan, mask,
                                      num_rounds=self.num_rounds,
                                      use_kernel=self.use_kernel)
@@ -422,7 +447,10 @@ class AsyncStage(WireStage):
     ``x_{t+1} = agg(y_{t-1}) + (y_t - y_{t-1})``, so on real hardware
     the collective overlaps the next iteration's compute instead of
     blocking. Wraps any inner pipeline: whatever the wrapped stages
-    produce for snapshot t is what gets applied at t+1."""
+    produce for snapshot t is what gets applied at t+1. The inner
+    pipeline gets a copy and the snapshot is a copy: the device backend
+    aggregates in place, and the device trainer updates its state in
+    place, so neither may share storage with the pending pair."""
 
     name = "async"
 
@@ -435,7 +463,9 @@ class AsyncStage(WireStage):
                                    device=tree_leaves(template)[0].device)}
 
     def apply(self, inner, state, pipe_state, mask, draws):
-        agg_out, pipe_state = inner(state, pipe_state)
+        snap = tree_map(torch.clone, state)
+        agg_out, pipe_state = inner(tree_map(torch.clone, state),
+                                    pipe_state)
         own = pipe_state[self.name]
         pending = own["pending"]
         # first iteration (has=0): no pending aggregate — pass through
@@ -443,8 +473,8 @@ class AsyncStage(WireStage):
             lambda ag, y, sn: torch.where(
                 own["has"] > 0,
                 (ag + (y.to(ag.dtype) - sn.to(ag.dtype))).to(y.dtype), y),
-            pending["agg"], state, pending["snap"])
-        new_own = {"pending": {"agg": agg_out, "snap": state},
+            pending["agg"], snap, pending["snap"])
+        new_own = {"pending": {"agg": agg_out, "snap": snap},
                    "has": torch.ones_like(own["has"])}
         return out, {**pipe_state, self.name: new_own}
 
@@ -499,7 +529,8 @@ class AggregationPipeline:
         they hold the plan (DP/secagg pairing)."""
         a = self.aggregator
         agg = type(a)(new_plan, num_rounds=a.num_rounds,
-                      use_kernel=a.use_kernel)
+                      backend=a.backend, one_shot=a.one_shot,
+                      comm_dtype=a.comm_dtype, use_kernel=a.use_kernel)
         return AggregationPipeline(
             agg, [s.with_plan(new_plan) for s in self.stages])
 
@@ -615,6 +646,9 @@ class AggregationPipeline:
 
 def build_pipeline(technique: str, plan: GridPlan, *,
                    num_rounds: Optional[int] = None,
+                   backend: str = "sim",
+                   one_shot: bool = False,
+                   comm_dtype: Optional[str] = None,
                    use_kernel: bool = False,
                    async_aggregation: bool = False,
                    use_dp: bool = False,
@@ -624,12 +658,10 @@ def build_pipeline(technique: str, plan: GridPlan, *,
                    compress: Optional[str] = None) -> AggregationPipeline:
     """Config-driven pipeline assembly (the one place that fixes stage
     order): async wraps DP wraps compression wraps the aggregator, so
-    noising precedes quantization and both ride the delayed schedule.
-
-    The sim backend only: the reference's ``backend``, ``one_shot`` and
-    ``comm_dtype`` belong to the device backend (ROADMAP.md, Queue 1
-    item 11)."""
+    noising precedes quantization and both ride the delayed schedule."""
     aggregator = make_aggregator(technique, plan, num_rounds=num_rounds,
+                                 backend=backend, one_shot=one_shot,
+                                 comm_dtype=comm_dtype,
                                  use_kernel=use_kernel)
     stages: List[WireStage] = []
     if async_aggregation:

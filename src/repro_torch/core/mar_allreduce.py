@@ -1,34 +1,45 @@
-"""Moshpit All-Reduce execution, sim backend: group means over the grid.
+"""Moshpit All-Reduce execution: group means over the grid.
 
 Peers are stacked on a leading axis ``[N, ...]`` of every tree leaf; one
-MAR round is a masked segment mean over that axis grouped by the round's
-group key. Supports arbitrary N, per-peer participation masks (churn)
-and virtual grid slots (capacity > N).
+MAR round is a masked mean over that axis within the round's groups.
+
+* sim backend (``mar_round_sim``): a masked segment mean grouped by the
+  round's group key; arbitrary N, per-peer participation masks (churn)
+  and virtual grid slots (capacity > N).
+* device backend (``mar_round_device``): the reference's grid reshape
+  ``[P, ...] -> [*dims, ...]`` and a masked mean over the round's axis,
+  for exact grids (capacity == N) with every peer on one card. It writes
+  each leaf in place, one block of columns at a time, so only one
+  block's temporaries are alive: at full width the old and new state
+  would not fit together. ``comm_dtype`` sets the dtype of the
+  cross-peer sum (the wire format); ``one_shot`` is one global masked
+  mean. The multi-rank form (a peer per rank, each round a collective
+  over per-round process groups) is ROADMAP.md, Queue 1 item 18.
 
 Churn semantics (paper §3.1): a dropped peer contributes neither to the
 numerator nor to the denominator of its group mean, but *receives* the
 group mean (it rejoins with the averaged model next iteration). An empty
 group keeps its previous state.
 
-Port of the sim half of the JAX package's ``repro/core/mar_allreduce.py``.
-``use_kernel`` routes each round through the masked group-mean kernel
-(``kernels/group_mean.py``); otherwise ``_segment_mean`` sums each
-group's rows (``index_add_`` on the CPU, a grouped sum on the card,
-where ``index_add_``'s atomics add in another order on every run). The
-device backend (``mar_round_device``) waits for its
-own slice (ROADMAP.md, Queue 1 item 11).
+Port of the JAX package's ``repro/core/mar_allreduce.py``. On the sim
+backend ``use_kernel`` routes each round through the masked group-mean
+kernel (``kernels/group_mean.py``); otherwise ``_segment_mean`` sums
+each group's rows (``index_add_`` on the CPU, a grouped sum on the
+card, where ``index_add_``'s atomics add in another order on every
+run). The device backend is the reference's reshape mean, which is no
+Pallas kernel there and no kernel here.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.aggregation import finalize_masked_mean
 from repro_torch.core.moshpit import GridPlan
-from repro_torch.tree import Tree, tree_leaves, tree_map
+from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 
 
 class RoundIndex(NamedTuple):
@@ -142,8 +153,7 @@ def _kernel_round(state: Tree, plan: GridPlan, rnd: int,
         ys = gm.group_mean_round([flat[i] for i in idx], order, mask, m)
         for i, y in zip(idx, ys):
             out[i] = y.reshape(leaves[i].shape)
-    it = iter(out)
-    return tree_map(lambda _: next(it), state)
+    return tree_unflatten(state, out)
 
 
 def mar_round_sim(state: Tree, plan: GridPlan, rnd: int,
@@ -240,3 +250,94 @@ def ring_allreduce_sim(state: Tree,
     in ``topology.py``.
     """
     return allreduce_all_to_all_sim(state, mask)
+
+
+# ---------------------------------------------------------------------------
+# device backend (every peer on one card, exact grids)
+# ---------------------------------------------------------------------------
+
+#: elements (over all peers) of one column block of the device backend:
+#: 256 MB in f32, so a block's temporaries stay near 1 GB
+DEVICE_BLOCK_ELEMS = 1 << 26
+
+
+def _acc_dtype(comm_dtype) -> torch.dtype:
+    if comm_dtype is None:
+        return torch.float32
+    if isinstance(comm_dtype, torch.dtype):
+        return comm_dtype
+    return getattr(torch, str(comm_dtype))
+
+
+def _grid_reshape_mean(x: torch.Tensor, dims: Sequence[int], axis: int,
+                       mask: torch.Tensor, comm_dtype=None) -> torch.Tensor:
+    """Masked mean over grid axis ``axis`` of the leading peer dim; a
+    fresh ``[P, ...]`` tensor in x's dtype.
+
+    ``comm_dtype`` (e.g. bf16) sets the dtype of the cross-peer sum —
+    the collective's wire format. The group mean still divides in f32.
+    """
+    grid = tuple(dims)
+    acc = _acc_dtype(comm_dtype)
+    xg = x.reshape(grid + tuple(x.shape[1:]))
+    mg = mask.reshape(grid + (1,) * (x.dim() - 1))
+    num = (xg.to(acc) * mg.to(acc)).sum(dim=axis, keepdim=True).float()
+    den = mg.float().sum(dim=axis, keepdim=True)
+    # keepdims mean + the full-shape own value: every group member
+    # receives the mean
+    out = finalize_masked_mean(num, den, xg)
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def _mean_into_(x: torch.Tensor, dims: Sequence[int], axis: int,
+                mask: torch.Tensor, comm_dtype) -> None:
+    """Write :func:`_grid_reshape_mean` of ``x`` into ``x``, one block of
+    columns at a time (the mean is columnwise, so the blocks are
+    independent)."""
+    if not x.is_contiguous() or x.dim() < 2:
+        x.copy_(_grid_reshape_mean(x, dims, axis, mask, comm_dtype))
+        return
+    flat = x.view(x.shape[0], -1)
+    cols = max(1, DEVICE_BLOCK_ELEMS // x.shape[0])
+    for c0 in range(0, flat.shape[1], cols):
+        blk = flat[:, c0:c0 + cols]
+        blk.copy_(_grid_reshape_mean(blk, dims, axis, mask, comm_dtype))
+
+
+def mar_round_device(state: Tree, plan: GridPlan, rnd: int,
+                     mask: Optional[torch.Tensor] = None,
+                     comm_dtype=None) -> Tree:
+    """One MAR round on the device backend, written into ``state``'s
+    leaves (each ``[P, ...]`` with P == plan.capacity); returns
+    ``state``. The reshape ``[P, ...] -> [*dims, ...]`` puts the round's
+    groups on grid axis ``rnd``; the masked mean over that axis is the
+    round (the paper's partial communication)."""
+    assert plan.capacity == plan.n_peers, "device backend needs exact grids"
+    if mask is None:
+        mask = _ones_mask(state)
+    for x in tree_leaves(state):
+        _mean_into_(x, plan.dims, rnd, mask, comm_dtype)
+    return state
+
+
+def mar_aggregate_device(state: Tree, plan: GridPlan,
+                         mask: Optional[torch.Tensor] = None,
+                         one_shot: bool = False,
+                         comm_dtype=None) -> Tree:
+    """Full MAR schedule on the device backend, in place; returns
+    ``state``.
+
+    ``one_shot`` fuses the d rounds into a single global masked mean —
+    identical under full participation (beyond-paper variant).
+    """
+    if one_shot:
+        assert plan.capacity == plan.n_peers, \
+            "device backend needs exact grids"
+        if mask is None:
+            mask = _ones_mask(state)
+        for x in tree_leaves(state):
+            _mean_into_(x, (plan.capacity,), 0, mask, comm_dtype)
+        return state
+    for g in range(plan.depth):
+        state = mar_round_device(state, plan, g, mask, comm_dtype)
+    return state

@@ -1,4 +1,4 @@
-"""Synthetic federated classification tasks (numpy).
+"""Synthetic federated classification tasks and LM token batches (numpy).
 
 The paper uses MNIST (vision) and 20 Newsgroups (text, frozen-encoder
 features). The repo runs offline, so it generates statistically
@@ -10,18 +10,20 @@ analogous synthetic tasks:
   feature clusters in d=768 (stand-in for frozen-DistilBERT CLS
   features on 20NG — the paper's model IS a linear/MLP head on frozen
   features, so a feature-space task is the faithful analogue).
+* ``lm_token_stream`` — Zipfian LM token batches with a short-range
+  bigram chain, the LM trainer's data (``launch/train.py``).
 
-A copy of ``classification_task`` from the JAX package's
-``repro/data/synthetic.py``: numpy ``default_rng`` throughout, so the
-arrays are bit-identical to the reference's. The LM token stream waits
-for the LM slice (ROADMAP.md, Queue 1 item 9).
+Copies of ``classification_task`` and ``lm_token_stream`` from the JAX
+package's ``repro/data/synthetic.py``: numpy ``default_rng`` throughout,
+so the arrays are bit-identical to the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,3 +82,31 @@ def classification_task(name: str, seed: int = 0, margin: float = 5.0
         return {"x": x.astype(np.float32), "y": y.astype(np.int32)}
 
     return spec, sample(spec.num_train), sample(spec.num_test)
+
+
+def lm_token_stream(vocab_size: int, batch: int, seq_len: int,
+                    seed: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+    """Infinite synthetic LM batches with Zipfian unigram statistics and a
+    short-range bigram structure (so loss decreases measurably): int32
+    ``tokens`` and ``labels`` [batch, seq_len] on the CPU, the caller
+    moves them to its device."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    unigram = (1.0 / ranks) / np.sum(1.0 / ranks)
+    shift = rng.integers(1, vocab_size)
+    while True:
+        base = rng.choice(vocab_size, size=(batch, seq_len + 1), p=unigram)
+        # 50% of positions continue a deterministic bigram chain
+        cont = rng.random((batch, seq_len)) < 0.5
+        for t in range(1, seq_len + 1):
+            nxt = (base[:, t - 1] + shift) % vocab_size
+            base[:, t] = np.where(cont[:, t - 1], nxt, base[:, t])
+        yield {
+            "tokens": torch.from_numpy(base[:, :-1].astype(np.int32)),
+            "labels": torch.from_numpy(base[:, 1:].astype(np.int32)),
+        }
+
+
+def lm_batch(vocab_size: int, batch: int, seq_len: int, seed: int = 0
+             ) -> Dict[str, torch.Tensor]:
+    return next(lm_token_stream(vocab_size, batch, seq_len, seed))

@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -97,3 +99,17 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all()
     return ctypes.CDLL(str(path))
+
+
+def refuse_autograd(kernel: str, tensors, note: str = "") -> None:
+    """Raise ``NotImplementedError`` when autograd would record a call of
+    a forward-only kernel: its output, written through ``ctypes`` into a
+    fresh tensor, has no ``grad_fn``, so every input upstream would lose
+    its gradient without a word. The wrappers call this on their CUDA
+    branch only; the plain versions on the CPU differentiate."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise NotImplementedError(
+            f"the {kernel} kernel is forward-only: it has no backward, so "
+            f"it cannot run on inputs that require grad{note}")

@@ -185,6 +185,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     global launches
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths)
+    _build.refuse_autograd("decode_attention", (q, k_cache, v_cache))
     check_device(q, k_cache, v_cache, lengths)
     check_layout(q, k_cache, v_cache, lengths)
     if q.numel() == 0:

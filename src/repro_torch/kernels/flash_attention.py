@@ -102,6 +102,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal)
+    # models.attention_flash.FlashAttention gives it a backward (its
+    # forward runs with grad off); a bare call under autograd refuses
+    _build.refuse_autograd("flash_attention", (q, k, v))
     validate(q, k, v)
     b, s, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]

@@ -195,6 +195,7 @@ def group_mean_round(xs: Sequence[torch.Tensor], order: torch.Tensor,
     global launches
     if all(t.device.type == "cpu" for t in (mask, order, *xs)):
         return group_mean_round_ref(xs, order, mask, m)
+    _build.refuse_autograd("group_mean", (mask, *xs))
     validate_round(xs, order, mask, m)
     ys = [torch.empty_like(x) for x in xs]
     if all(x.numel() == 0 for x in xs):
@@ -222,6 +223,7 @@ def group_mean_fwd(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     global launches
     if x.device.type == "cpu":
         return group_mean_ref(x, mask)
+    _build.refuse_autograd("group_mean", (x, mask))
     validate(x, mask)
     g, m, d = x.shape
     y = torch.empty_like(x)

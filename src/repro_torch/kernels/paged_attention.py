@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels.ref import NEG_INF
 
@@ -90,6 +91,8 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return gather_dense_decode(q, k_pages, v_pages, block_tables,
                                    lengths)
+    _build.refuse_autograd("paged_decode_attention",
+                           (q, k_pages, v_pages))
     _decode.check_device(q, k_pages, v_pages, block_tables, lengths)
     check_layout(q, k_pages, v_pages, block_tables, lengths)
     if q.numel() == 0:

@@ -135,6 +135,10 @@ def ssd_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     if q.device.type == "cpu":
         return ssd_scan_ref(q, k, v, log_a, h0)
+    _build.refuse_autograd(
+        "ssd_scan", (q, k, v, log_a, h0),
+        "; training the ssm and hybrid families on the card needs its "
+        "backward (ROADMAP.md, Queue 1 item 19)")
     log_a, h0 = log_a.float(), h0.float().contiguous()
     q, k, v = (_unit_last(x) for x in (q, k, v))
     validate(q, k, v, log_a, h0)

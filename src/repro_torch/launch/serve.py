@@ -12,8 +12,9 @@ model runs on CUDA (and the command raises where there is no GPU)
 unless ``--device cpu`` is given. ``--ckpt-dir`` serves the newest
 step of a checkpoint directory (written by either package; a
 peer-stacked FL state is folded to its peer mean) and hot-swaps newer
-steps mid-drain. The frontends raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+steps mid-drain. The frontend families (vlm, audio) take prefix
+embeddings, not token prompts: as in the reference they go to the
+sequential baseline, which refuses them.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --sessions 8 --prompt-len 24 --gen 16 --max-batch 4
@@ -92,7 +93,8 @@ def main(argv=None) -> int:
             print(f"[serve] restored step {ckpt.latest_step()} "
                   f"from {args.ckpt_dir} (meta: {meta})")
 
-    paged = cfg.family in PAGED and not args.sequential
+    paged = cfg.family in PAGED and cfg.frontend == "none" \
+        and not args.sequential
     if not paged and args.vary_prompts and cfg.family not in PAGED:
         print("[serve] recurrent family: fixed-length prompts only")
         args.vary_prompts = False

@@ -1,8 +1,10 @@
 """Model facade: one object per architecture config.
 
-Port of the JAX package's ``repro/models/model.py`` for the families
-the port takes (dense, moe, ssm, hybrid; see
-``transformer.check_supported``).
+Port of the JAX package's ``repro/models/model.py``: init, loss,
+forward and decode for every family of the ten architectures. The
+modality frontends (pixtral, musicgen) are stubs as in the reference: a
+batch carries precomputed patch or frame embeddings ``prefix_embeds``
+[b, P, d_model] that feed the backbone.
 ``Model.init`` runs on CUDA unless the caller asks for another device,
 and raises where there is no GPU. Caches are made on the device the
 caller names (the serving engine passes its parameters' device).
@@ -44,6 +46,12 @@ class Model:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return T.init_params(self.cfg, gen)
+
+    def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Next-token cross entropy (+ MoE aux) of ``batch`` (``tokens``,
+        ``labels``, optional ``prefix_embeds`` and ``loss_mask``)."""
+        return T.lm_loss(params, batch, self.cfg)
 
     def forward(self, params: Tree, tokens: torch.Tensor, **kw):
         return T.forward(params, tokens, self.cfg, **kw)

@@ -1,12 +1,14 @@
-"""Decoder stack: forward with the prefill cache, dense and paged decode.
+"""Decoder stack: training forward and loss, forward with the prefill
+cache, dense and paged decode.
 
-Port of the JAX package's ``repro/models/transformer.py`` for the dense
-family and the recurrent ones. Layer params are stacked along leading
-axes, as in the reference, so the carry-over is the identity; the
-decoder is a Python loop over the layer views ``leaf[i]`` (the
-reference's ``lax.scan``). Heterogeneous families use *periodic groups*:
+Port of the JAX package's ``repro/models/transformer.py`` for every
+family. Layer params are stacked along leading axes, as in the
+reference, so the carry-over is the identity; the decoder is a Python
+loop over the layer views (the reference's ``lax.scan``): ``layers``
+in the forward, ``layer`` in decode.
+Heterogeneous families use *periodic groups*:
 
-* dense           : one run of L attention blocks, ``blocks`` [L, ...]
+* dense/vlm/audio : one run of L attention blocks, ``blocks`` [L, ...]
 * moe             : one run of L (attention + MoE-FFN) blocks,
                     ``blocks`` [L, ...] with ``moe`` in place of ``mlp``
 * ssm (xlstm)     : G groups of (p-1 mLSTM + 1 sLSTM), p = slstm_every;
@@ -17,21 +19,27 @@ reference's ``lax.scan``). Heterogeneous families use *periodic groups*:
                     ``shared_attn`` reused by every group
 
 KV caches, recurrent states and the paged pool are updated in place.
-The modality frontends raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+The modality frontends are stubs, as in the reference: ``prefix_embeds``
+[b, P, d] (precomputed patch or frame embeddings, ``PREFIX_LEN``) are
+normalized by ``frontend_norm`` and prepended, and logits come for the
+token positions only; decoding stays token-only. ``cfg.remat ==
+"block"`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) on the
+blocks the reference wraps.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.tree import Tree, tree_map
+from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -40,16 +48,29 @@ Tensor = torch.Tensor
 DENSE_FAMILIES = ("dense", "vlm", "audio", "moe")
 #: families whose decode state is recurrent (no pageable KV cache)
 RECURRENT_FAMILIES = ("ssm", "hybrid")
+#: prefix positions of each modality frontend's stub embeddings
+PREFIX_LEN = {"vision_patches": 256, "audio_frames": 64}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not take."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 9)")
+    """Raise ``ValueError`` for a family or frontend the model lacks."""
     if cfg.family not in DENSE_FAMILIES + RECURRENT_FAMILIES:
         raise ValueError(cfg.family)
+    if cfg.frontend != "none" and cfg.frontend not in PREFIX_LEN:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` recomputed in the backward when ``cfg.remat == "block"``
+    and autograd records (the reference's ``jax.checkpoint``)."""
+    if cfg.remat != "block":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
 
 
 def group_layout(cfg: ModelConfig) -> Tuple[int, int]:
@@ -68,6 +89,17 @@ def group_layout(cfg: ModelConfig) -> Tuple[int, int]:
 def layer(params: Tree, i: int) -> Tree:
     """Layer ``i``'s view of a stacked ``[L, ...]`` tree (no copy)."""
     return tree_map(lambda x: x[i], params)
+
+
+def layers(params: Tree) -> List[Tree]:
+    """Every layer's view of a stacked ``[L, ...]`` tree, from one
+    ``unbind`` per leaf. Under autograd its backward stacks the layers'
+    gradients once; ``layer(params, i)`` for each i would scatter every
+    layer's gradient into a zero tensor of the whole stack, L times the
+    stack's bytes."""
+    leaves = [x.unbind(0) for x in tree_leaves(params)]
+    return [tree_unflatten(params, [u[i] for u in leaves])
+            for i in range(len(leaves[0]))]
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +157,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Tree]:
     else:
         params["blocks"] = _stack(cfg.num_layers,
                                   lambda: _attn_mlp_init(gen, cfg))
+    if cfg.frontend != "none":
+        params["frontend_norm"] = L.rmsnorm_init(d, dt, dev)
     params["final_norm"] = L.rmsnorm_init(d, dt, dev)
     return params
 
@@ -160,16 +194,17 @@ def _forward_ssm(params: Tree, h: Tensor, cfg: ModelConfig,
                  collect_cache: bool):
     """xLSTM groups; the cache holds mLSTM states [g, p-1, b, nh, hd,
     hd+1] and the sLSTM carry, four [g, b, d] f32 tensors."""
-    g, p = group_layout(cfg)
+    def mblock(lp, h):
+        y, hf = S.mlstm_block(lp["cell"],
+                              L.rmsnorm(h, lp["norm"], cfg.norm_eps), cfg)
+        return h + y, hf
+
+    mblock = _maybe_remat(mblock, cfg)
     mstates, scarries = [], []
-    for gi in range(g):
-        gp = layer(params["blocks"], gi)
+    for gp in layers(params["blocks"]):
         ms = []
-        for li in range(p - 1):
-            lp = layer(gp["mlstm"], li)
-            y, hf = S.mlstm_block(lp["cell"],
-                                  L.rmsnorm(h, lp["norm"], cfg.norm_eps), cfg)
-            h = h + y
+        for lp in layers(gp["mlstm"]):
+            h, hf = mblock(lp, h)
             ms.append(hf)
         sp = gp["slstm"]
         y, carry = S.slstm_block(sp["cell"],
@@ -189,18 +224,20 @@ def _forward_hybrid(params: Tree, h: Tensor, cfg: ModelConfig,
                     positions: Tensor, collect_cache: bool):
     """zamba2 groups; the shared block runs full-causal and the cache
     keeps only its last ``w = min(window, s)`` K/V rows per group."""
-    g, p = group_layout(cfg)
     shared = params["shared_attn"]
     w = min(cfg.shared_attn_window, h.shape[1])
+
+    def mblock(lp, h):
+        y, hf, ctail = S.mamba_block(
+            lp["cell"], L.rmsnorm(h, lp["norm"], cfg.norm_eps), cfg)
+        return h + y, hf, ctail
+
+    mblock = _maybe_remat(mblock, cfg)
     sstates, convs, ks, vs = [], [], [], []
-    for gi in range(g):
-        gp = layer(params["blocks"], gi)
+    for gp in layers(params["blocks"]):
         ss, cs = [], []
-        for li in range(p - 1):
-            lp = layer(gp, li)
-            y, hf, ctail = S.mamba_block(
-                lp["cell"], L.rmsnorm(h, lp["norm"], cfg.norm_eps), cfg)
-            h = h + y
+        for lp in layers(gp):
+            h, hf, ctail = mblock(lp, h)
             ss.append(hf)
             cs.append(ctail)
         h, k, v, _ = _attn_mlp_block(shared, h, cfg, positions)
@@ -219,20 +256,25 @@ def _forward_hybrid(params: Tree, h: Tensor, cfg: ModelConfig,
 def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
             prefix_embeds: Optional[Tensor] = None,
             collect_cache: bool = False):
-    """tokens: [b, s]. Returns (logits [b, s, V] f32, aux_loss, cache).
+    """tokens: [b, s_text]. Returns (logits [b, s_text, V] f32,
+    aux_loss, cache).
 
-    ``aux_loss`` is the sum over layers of the MoE load-balance loss (0
-    without MoE). With ``collect_cache`` the cache is, besides ``"pos":
-    [b] int32``: dense and moe ``{"k", "v": [L, b, s, kvh, hd]}``; ssm
-    ``{"mlstm", "slstm"}``; hybrid ``{"ssm", "conv", "attn_k",
-    "attn_v"}`` (see :func:`init_cache`).
+    ``prefix_embeds`` [b, P, d] (the modality stub) is normalized by
+    ``frontend_norm`` and prepended; logits are produced for the token
+    positions only. ``aux_loss`` is the sum over layers of the MoE
+    load-balance loss (0 without MoE). With ``collect_cache`` the cache
+    is, besides ``"pos": [b] int32`` (P + s_text): dense and moe ``{"k",
+    "v": [L, b, s, kvh, hd]}``; ssm ``{"mlstm", "slstm"}``; hybrid
+    ``{"ssm", "conv", "attn_k", "attn_v"}`` (see :func:`init_cache`).
     """
     check_supported(cfg)
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix embeddings come with the "
-                                  "frontends (ROADMAP.md, Queue 1 item 9)")
-    b, s = tokens.shape
+    b, s_text = tokens.shape
     h = L.embed(params["embedding"], tokens)
+    if prefix_embeds is not None:
+        pre = L.rmsnorm(prefix_embeds.to(h.dtype), params["frontend_norm"],
+                        cfg.norm_eps)
+        h = torch.cat([pre, h], dim=1)
+    s = h.shape[1]
     positions = torch.arange(s, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
@@ -241,10 +283,11 @@ def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
         h, cache = _forward_hybrid(params, h, cfg, positions, collect_cache)
     else:
         blocks = params["blocks"]
+        block = _maybe_remat(
+            lambda bp, h: _attn_mlp_block(bp, h, cfg, positions), cfg)
         ks, vs = [], []
-        for i in range(cfg.num_layers):
-            h, k, v, a = _attn_mlp_block(layer(blocks, i), h, cfg,
-                                         positions)
+        for bp in layers(blocks):
+            h, k, v, a = block(bp, h)
             if a is not None:
                 aux = aux + a
             if collect_cache:
@@ -256,8 +299,28 @@ def forward(params: Tree, tokens: Tensor, cfg: ModelConfig,
         cache["pos"] = torch.full((b,), s, dtype=torch.int32,
                                   device=h.device)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if prefix_embeds is not None:
+        h = h[:, -s_text:]
     logits = L.unembed(params["embedding"], h, cfg)
     return logits, aux, cache
+
+
+def lm_loss(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig,
+            aux_coef: float = 0.01) -> Tensor:
+    """Next-token cross entropy (+ ``aux_coef`` x the MoE aux): the mean
+    over every position, or over the positions ``loss_mask`` keeps."""
+    logits, aux, _ = forward(params, batch["tokens"], cfg,
+                             prefix_embeds=batch.get("prefix_embeds"))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    nll = lse - picked
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux_coef * aux
 
 
 # ---------------------------------------------------------------------------
@@ -450,7 +513,7 @@ def prefill_cache_to_decode(cache: Tree, cfg: ModelConfig, max_len: int,
 # Paged decode (serving tier)
 # ---------------------------------------------------------------------------
 
-PAGED_FAMILIES = ("dense", "moe")
+PAGED_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 def _check_paged(cfg: ModelConfig) -> None:

@@ -8,7 +8,7 @@ every dict level and in order within a tuple, the order
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -32,3 +32,9 @@ def tree_leaves(tree: Tree) -> List[torch.Tensor]:
     if isinstance(tree, tuple):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def tree_unflatten(like: Tree, leaves: Sequence[Any]) -> Tree:
+    """``like``'s structure with ``leaves`` in :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)

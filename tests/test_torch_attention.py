@@ -112,12 +112,61 @@ def test_flash_cross_lengths_and_noncausal(causal):
 
 
 def test_flash_autograd_backward_waits_for_lm_slice():
+    """Once a pin that the backward raised until the LM-training slice;
+    now that slice is here: the backward runs and is the gradient of o
+    alone, so a gradient arriving for lse raises, as the reference's
+    custom VJP of o has no lse cotangent."""
     q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    k = torch.randn(1, 8, 1, 16)
+    k = torch.randn(1, 8, 1, 16, requires_grad=True)
     v = torch.randn(1, 8, 1, 16)
     out = attention_flash.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        out.sum().backward()
+    out.sum().backward()
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+    assert bool(torch.isfinite(q.grad).all())
+    o, lse = attention_flash.flash_fwd(q, k, v)
+    with pytest.raises(NotImplementedError, match="lse takes no gradient"):
+        (o.sum() + lse.sum()).backward()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64, 80])
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_flash_backward_matches_reference_vjp(g, d, causal):
+    """dq, dk, dv of the port's flash attention (the plain forward on the
+    CPU, the reference's blockwise recompute from (o, lse) in the
+    backward) against ``jax.vjp`` of the reference's ``flash_attention``
+    on the same inputs and cotangent: f32 within 1e-5. s = 24 is no
+    multiple of the chunks asked for (16 and 10): ``_chunks`` blocks it
+    by 12 and 8; GQA sums dk, dv over the g query heads."""
+    import jax
+
+    from repro.models.attention_flash import flash_attention as ref_flash
+
+    rng = np.random.default_rng(10 * g + d)
+    b, s, kvh = 2, 24, 2
+    h = g * kvh
+    (q, qj), (k, kj), (v, vj), (do, doj) = (
+        _pair(rng, shp, "float32") for shp in
+        [(b, s, h, d), (b, s, kvh, d), (b, s, kvh, d), (b, s, h, d)])
+    _, vjp = jax.vjp(lambda a, b_, c: ref_flash(a, b_, c, causal, 16, 10),
+                     qj, kj, vj)
+    want = vjp(doj)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    out = attention_flash.flash_attention(*leaves, causal, 16, 10)
+    got = torch.autograd.grad(out, leaves, do)
+    for gt, w in zip(got, want):
+        assert gt.dtype == torch.float32
+        _close(gt, w, "float32")
+
+
+def test_flash_backward_keeps_the_input_dtypes():
+    """bf16 inputs: the backward computes in f32 and returns bf16
+    gradients, as the reference casts dq, dk, dv to the inputs'
+    dtypes."""
+    q, k, v = (torch.randn(1, 16, n, 32, dtype=torch.bfloat16,
+                           requires_grad=True) for n in (4, 2, 2))
+    attention_flash.flash_attention(q, k, v).float().sum().backward()
+    assert {x.grad.dtype for x in (q, k, v)} == {torch.bfloat16}
 
 
 # ---------------------------------------------------------------------------

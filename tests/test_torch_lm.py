@@ -253,11 +253,33 @@ def test_init_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-medium"])
 def test_unported_families_raise(arch):
+    """The frontend families, once refused here (Queue 1 item 9), are
+    taken now: init adds ``frontend_norm``, as the reference's, and the
+    forward with prefix embeddings matches the reference's logits on the
+    same weights (the prefix normalized and prepended, logits for the
+    token positions only)."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Model(cfg).init(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        T.check_supported(cfg)
+    T.check_supported(cfg)
+    params = Model(cfg).init(seed=0, device="cpu")
+    assert params["frontend_norm"].shape == (cfg.d_model,)
+    rcfg = dataclasses.replace(ref_smoke_config(arch), dtype="float32")
+    ref = RefModel(rcfg)
+    ref_params = ref.init(jax.random.PRNGKey(3))
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray,
+                                                     ref_params))
+    assert sorted(tparams) == sorted(params)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    pre = rng.normal(size=(2, T.PREFIX_LEN[cfg.frontend],
+                           cfg.d_model)).astype(np.float32)
+    want, _, _ = ref.forward(ref_params, jnp.asarray(toks),
+                             prefix_embeds=jnp.asarray(pre))
+    got, _, _ = Model(dataclasses.replace(cfg, dtype="float32")).forward(
+        tparams, torch.from_numpy(toks),
+        prefix_embeds=torch.from_numpy(pre))
+    assert got.shape == (2, 12, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=TOL["float32"], rtol=TOL["float32"])
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "moonshot-v1-16b-a3b"])

@@ -390,7 +390,10 @@ def test_cli_serves_ckpt_dir_and_the_moe_smoke_configs(case, tmp_path,
 
 
 def test_cli_frontends_keep_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    """The frontend families, once refused for their unported frontend
+    (Queue 1 item 9), now take the reference's path: no paged engine for
+    prefix embeddings, and the sequential baseline refuses them."""
+    with pytest.raises(ValueError, match="token prompts only"):
         serve_cli.main(["--smoke", "--device", "cpu", "--arch",
                         "pixtral-12b"])
 

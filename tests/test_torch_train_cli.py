@@ -1,0 +1,124 @@
+"""The port's LM trainer CLI (``repro_torch.launch.train``) on the CPU.
+
+* The ``[train] comm total=...`` line, byte for byte, against the
+  reference's for starcoder2-3b and musicgen-medium at their smoke
+  configs under each case of ``chip_smoke.TRAIN_CLI_CASES`` (the
+  default, ``--churn sessions``, ``--link-profile wireless --link-loss
+  0.1`` and ``--resize-at 2:2``): the constant ``chip_smoke.py`` holds
+  (``tools/reference_constants.py``), and the reference's own CLI run
+  live beside the port.
+* Every architecture trains 3 steps at 4 peers with finite losses.
+* ``--ckpt-dir`` then ``--resume`` with another ``--peers`` restores
+  elastically; the unported flags raise naming their ROADMAP.md item;
+  without ``--device`` the trainer raises where there is no CUDA.
+"""
+import contextlib
+import io
+import json
+import math
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.launch import train as ref_train
+
+from repro_torch.configs import ARCH_IDS
+from repro_torch.launch import train
+from test_torch_federation import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke(monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    return chip_smoke
+
+
+def _run(main, argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue()
+
+
+def _comm(out: str) -> str:
+    return next(ln for ln in out.splitlines()
+                if ln.startswith("[train] comm total="))
+
+
+@pytest.mark.parametrize("case", ["default", "sessions", "wireless",
+                                  "resize"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "musicgen-medium"])
+def test_comm_line_is_the_references(monkeypatch, arch, case):
+    cs = _chip_smoke(monkeypatch)
+    argv = ["--arch", arch, *cs.TRAIN_CLI_BASE, *cs.TRAIN_CLI_CASES[case]]
+    out = _run(train.main, [*argv, "--device", "cpu"])
+    want = cs.TRAIN_CLI_COMM[f"{arch} {case}"]
+    assert _comm(out) == want
+    assert _comm(_run(ref_train.main, argv)) == want
+    if case == "resize":
+        assert "elastic resize at step 2: 4 -> 2 peers" in out
+
+
+def test_regions_shuffle_line_is_the_references():
+    argv = ["--arch", "starcoder2-3b", "--smoke", "--steps", "2",
+            "--peers", "4", "--seq", "16", "--link-profile", "regions",
+            "--link-shuffle"]
+    out = _run(train.main, [*argv, "--device", "cpu"])
+    assert _comm(out) == _comm(_run(ref_train.main, argv))
+    assert "comm_s=" in _comm(out)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_architecture_trains_with_finite_losses(arch, tmp_path):
+    metrics = tmp_path / "m.jsonl"
+    out = _run(train.main, ["--arch", arch, "--smoke", "--device", "cpu",
+                            "--steps", "3", "--peers", "4", "--seq", "32",
+                            "--metrics", str(metrics)])
+    assert "params=" in out and "grid=(2, 2)" in out
+    losses = [json.loads(ln)["loss"]
+              for ln in metrics.read_text().splitlines()]
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+
+
+def test_checkpoint_then_elastic_resume(tmp_path):
+    base = ["--arch", "starcoder2-3b", "--smoke", "--device", "cpu",
+            "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    out = _run(train.main, [*base, "--steps", "2", "--peers", "4"])
+    assert "[train] checkpointed at 2" in out
+    seen = []
+    out = _run(lambda a: train.main(a, on_step=seen.append),
+               [*base, "--steps", "1", "--peers", "2", "--resume"])
+    # the reference prints the restored metadata, whose n_peers
+    # restore_elastic has already set to the new count
+    assert "resumed from step 2 (was 2 peers)" in out
+    assert "[train] checkpointed at 3" in out
+    state = seen[0]["state"]
+    assert all(x.shape[0] == 2 for x in
+               torch.utils._pytree.tree_leaves(state["params"]))
+    meta = json.loads((tmp_path / "step_0000000003" / "manifest.json")
+                      .read_text())["metadata"]
+    assert meta["n_peers"] == 2 and meta["grid_dims"] == [2]
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--adaptive-m", "tail_aware"], "Queue 1 item 13"),
+    (["--placement", "clustered"], "Queue 1 item 13"),
+    (["--transport", "vector_sim"], "Queue 1 item 13"),
+    (["--transport", "super_sim"], "Queue 1 item 13"),
+    (["--transport", "socket"], "Queue 1 item 14"),
+    (["--peer-hosts", "book.json"], "Queue 1 item 14"),
+    (["--rank", "1"], "Queue 1 item 14"),
+])
+def test_unported_flags_name_their_item(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        train.main(["--arch", "starcoder2-3b", "--smoke", "--device", "cpu",
+                    *flags])
+
+
+def test_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "starcoder2-3b", "--smoke", "--steps", "1"])

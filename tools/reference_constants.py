@@ -2,7 +2,8 @@
 """Compute, from the JAX reference on the CPU, the constants that
 ``chip_smoke.py`` and the port's tests hold the port to.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src:. python3 tools/reference_constants.py
+    JAX_PLATFORMS=cpu PYTHONPATH=src:. python3 tools/reference_constants.py \
+        [extensions] [figures] [train_cli] [train_chip]
 
 For each protocol extension of the quickstart
 (``repro_torch.quickstart.EXTENSIONS``: 27 peers, text task, two local
@@ -14,8 +15,13 @@ seed. Then it runs the reference's figure scripts
 (``benchmarks/fig{1_perf_gap,2_mkd,3_churn,4_dp,5_parity}.py``) at the
 smoke scale (8 peers, 6 iterations, one local batch) for seeds 0, 1 and
 2 and prints each row's ``comm_mb`` and ``sim_s`` (seed 0) and the
-largest spread of any row's accuracy over the seeds. Needs jax; takes a
-few minutes.
+largest spread of any row's accuracy over the seeds. Last, the LM
+trainer's communication ledger (``repro.launch.train``): the comm-total
+line of each CPU CLI case the port's tests run (``TRAIN_CLI_CASES``, at
+the smoke configs), and the ledger's total bytes of the chip's full-width
+musicgen-medium run (4 peers, 6 steps), computed from
+``core/topology.py`` over ``jax.eval_shape`` of the FL state without
+building the model. Needs jax; takes a few minutes.
 """
 from __future__ import annotations
 
@@ -30,6 +36,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 SMOKE = dict(peers=8, iters=6, eval_every=3, local_batches=1)
 FIGS = ("fig1_perf_gap", "fig2_mkd", "fig3_churn", "fig4_dp", "fig5_parity")
+#: the archs of the LM trainer's CLI cases (chip_smoke.TRAIN_CLI_CASES)
+TRAIN_CLI_ARCHS = ("starcoder2-3b", "musicgen-medium")
+#: the chip's full-width run: chip_smoke.py's train phase (TRAIN_ARGS)
+TRAIN_CHIP = dict(arch="musicgen-medium", peers=4, steps=6)
 
 
 def extension_runs(iterations: int = 20) -> None:
@@ -87,11 +97,63 @@ def figure_rows() -> None:
         flush=True)
 
 
+def comm_line(out: str) -> str:
+    """The ``[train] comm total=...`` line of a trainer's output."""
+    return next(ln for ln in out.splitlines()
+                if ln.startswith("[train] comm total="))
+
+
+def train_cli_lines() -> None:
+    from chip_smoke import TRAIN_CLI_BASE, TRAIN_CLI_CASES
+    from repro.launch import train
+
+    lines = {}
+    for arch in TRAIN_CLI_ARCHS:
+        for name, extra in TRAIN_CLI_CASES.items():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                train.main(["--arch", arch, *TRAIN_CLI_BASE, *extra])
+            lines[f"{arch} {name}"] = comm_line(buf.getvalue())
+    print(json.dumps({"train_cli_comm": lines}), flush=True)
+
+
+def train_chip_bytes() -> None:
+    import jax
+
+    from repro.configs.registry import get_config
+    from repro.core import topology
+    from repro.core.aggregation import CommLedger, build_pipeline
+    from repro.core.fl_device import init_fl_state
+    from repro.core.moshpit import plan_grid
+    from repro.models.model import Model
+
+    n, steps = TRAIN_CHIP["peers"], TRAIN_CHIP["steps"]
+    model = Model(get_config(TRAIN_CHIP["arch"]))
+    shape = jax.eval_shape(
+        lambda: init_fl_state(model, n, jax.random.PRNGKey(0)))
+    peer_model_bytes = (topology.pytree_bytes(shape["params"])
+                        + topology.pytree_bytes(shape["momentum"])) // n
+    grid = plan_grid(n)
+    pipeline = build_pipeline("mar", grid, backend="device")
+    ledger = CommLedger()
+    for _ in range(steps):
+        pipeline.record_iteration(ledger, n, peer_model_bytes)
+    print(json.dumps({"train_chip": {
+        **TRAIN_CHIP, "grid": list(grid.dims),
+        "peer_model_bytes": peer_model_bytes,
+        "comm_total_bytes": ledger.total_bytes}}), flush=True)
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
-    extension_runs()
-    figure_rows()
+    only = sys.argv[1:]
+    for name, fn in (("extensions", extension_runs),
+                     ("figures", figure_rows),
+                     ("train_cli", train_cli_lines),
+                     ("train_chip", train_chip_bytes)):
+        if not only or name in only:
+            fn()
 
 
 if __name__ == "__main__":
