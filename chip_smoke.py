@@ -96,6 +96,21 @@ Phases, each printing JSON lines:
                 Then Fig. 5's MAR (kernel on and off) and FedAvg
                 configs at N=125, two runs of 10 steps each: every
                 route is exact from run to run.
+   federation_large_n — the large-N engines and controllers
+                (LARGE_N_RUNS, kernel on, 20 iterations): the text model
+                at N=125 under tail-aware adaptive group sizing on the
+                wireless profile, once under each transport (sim,
+                vector_sim, super_sim), and clustered placement at N=64
+                on shuffled regions (vector_sim). Each run's ledger by
+                source, sim_seconds (1e-9), regroup_log and
+                placement_log exactly the reference's (LARGE_N_REF, from
+                tools/reference_constants.py), the transports' ledgers
+                equal, two regroups (5x5x5 -> 3^5 over 243 slots -> 2^7
+                over 128), one group-mean launch per round of the grid in
+                force at each step, accuracy at 20 in the reference's
+                band, and every aggregation of a second run within 1e-5
+                of the kernel-off route on the same input; ms per
+                iteration per transport.
 7. profile    — ten quickstart steps under ``torch.profiler``: host and
                 device time of each layer ``Federation.step`` labels
                 (transport, local update, aggregation), the
@@ -180,19 +195,36 @@ Phases, each printing JSON lines:
                 over a bf16 wire: losses within 1e-4, theta within 1e-4
                 (int8: rare one-quantum flips); a ``--resize-at`` CLI
                 run on the card with its survivors bit-exact and the
-                reference's comm line; xlstm-350m refused on the card
-                (the SSD scan kernel is forward-only).
+                reference's comm line.
+   train_recurrent — zamba2-2.7b (2,063,209,520 parameters) and
+                xlstm-350m (518,640,640) at full width, bf16, seed 0,
+                through ``launch.train.main`` with the train phase's
+                traffic (4 peers on (2, 2), batch 2 of 128, 6 steps): the
+                SSD-scan kernel forward in every Mamba2 / mLSTM layer and
+                again in its remat recompute, its backward the plain
+                chunked scan's VJP (``_SsdScanFn``); the train phase's
+                gates, with 360 SSD-scan and 36 flash launches a zamba2
+                step (the shared attention block is not rematerialized)
+                and 168 SSD-scan launches an xlstm step, and the ledgers
+                of TRAIN_RECURRENT.
+   train_recurrent_parity — both families' smoke configs at 2 layers in
+                f32: 3 steps on the card and on the CPU from one
+                theta^0, losses and theta within 1e-4, 96 SSD-scan
+                launches on the card.
 17. kernels   — one JSON object per kernel: launches on its main path
                 (the group mean's: the federation run's 60, the
-                extension runs' 427 and the smoke figures'; flash's and
-                the paged kernel's include the moonshot run's, flash's
-                the training run's too), max error, times, bound.
+                extension runs' 427, the smoke figures' and the large-N
+                runs'; flash's and the paged kernel's include the
+                moonshot run's, flash's the training runs' too, the SSD
+                scan's the recurrent training runs'), max error, times,
+                bound.
 
 Phase 4 also runs the flash kernel at zamba2's shared-attention shape
 (s=512, h=kvh=32, d=80, bf16), flash and the paged kernel at
 moonshot's (h=kvh=16, d=128: one query head per kv head, g=1) in bf16
-and f32, flash at the trainer's shape (row 2t: b=2, s=128, h=kvh=24,
-d=64, bf16) with the plain backward's time beside SDPA's backward (not
+and f32, flash at the trainers' shapes (row 2t, musicgen-medium: b=2,
+s=128, h=kvh=24, d=64; row 2h, zamba2's shared block: h=kvh=32, d=80;
+bf16) with the plain backward's time beside SDPA's backward (not
 gated), and an ``ssd_scan`` phase holds the
 SSD-scan kernel against its plain sequential version at both families'
 prefill shapes (zamba2: 80 heads, dk=dv=64, B and C broadcast with a
@@ -201,7 +233,12 @@ S=200 and S=1 with a nonzero h0, in f32 and bf16, and in bf16 one past
 a 64-step chunk (zamba2, S=65 and 129) and with v at an odd time stride
 (zamba2) or cut to dv 512 (xlstm), so every instantiation of the bf16
 kernel runs, within 1e-4 and 2e-2 relative to the largest |y| and |h|,
-with median times of the path rows (both types) beside the bound.
+with median times of the path rows (both types) beside the bound. An
+``ssd_scan_grad`` phase then holds the scan's autograd Function (the
+kernel forward, the plain VJP backward) against autograd of the plain
+sequential scan at the trainer's two shapes (b=2, S=128), in bf16 and
+f32, with a nonzero h0 and both cotangents, and prints the forward
+kernel's time beside the plain backward's.
 
 Then the card's nvidia-smi line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero before the last line; so does a
@@ -299,7 +336,103 @@ TRAIN_CLI_CASES = {"default": (), "sessions": ("--churn", "sessions"),
                    "wireless": ("--link-profile", "wireless",
                                 "--link-loss", "0.1"),
                    "resize": ("--resize-at", "2:2")}
+# The trainer's large-N flags at 16 peers: each CPU CLI case's regroup
+# and comm-total lines as the reference prints them (same source; the
+# schedule case's controller is ScheduleController, injected in both
+# packages, regrouping (2, 2, 2, 2) -> (4, 4) after step 1)
+TRAIN_CLI_LARGE_N_BASE = ("--arch", "starcoder2-3b", "--smoke", "--steps",
+                          "3", "--peers", "16", "--seq", "16")
+TRAIN_CLI_LARGE_N_SCHEDULE = ((0, (4, 4)),)
+TRAIN_CLI_LARGE_N = {
+    "adaptive_m": (
+        ("--link-profile", "wireless", "--adaptive-m", "tail_aware"),
+        ("[train] comm total=794.1MB agg/mar=794.1MB comm_s=77.97 "
+         "[simulated (wireless)]",)),
+    "placement": (
+        ("--link-profile", "regions", "--link-shuffle", "--placement",
+         "clustered"),
+        ("[train] placement regroup at step 1: 13/16 peers moved",
+         "[train] comm total=854.1MB agg/mar=794.1MB placement_probe=60.0MB"
+         " comm_s=95.88 [simulated (regions)]")),
+    "vector_sim": (
+        ("--link-profile", "wireless", "--link-loss", "0.1", "--transport",
+         "vector_sim"),
+        ("[train] comm total=794.1MB agg/mar=794.1MB comm_s=77.97 "
+         "[simulated (wireless)]",)),
+    "super_sim": (
+        ("--link-profile", "regions", "--link-shuffle", "--placement",
+         "clustered", "--adaptive-m", "tail_aware", "--transport",
+         "super_sim"),
+        ("[train] placement regroup at step 1: 13/16 peers moved",
+         "[train] comm total=854.1MB agg/mar=794.1MB placement_probe=60.0MB"
+         " comm_s=95.88 [simulated (regions)]")),
+    "schedule": (
+        ("--link-profile", "wireless", "--adaptive-m", "schedule"),
+        ("[train] adaptive-M regroup at step 1: (2, 2, 2, 2) -> (4, 4)",
+         "[train] comm total=1058.7MB agg/mar=1058.7MB comm_s=103.91 "
+         "[simulated (wireless)]")),
+}
 TRAIN_COMM_BYTES = 523_693_817_856
+# The recurrent families trained at full width by the train_recurrent
+# phase (TRAIN_ARGS' traffic: 4 peers on (2, 2), batch 2 of 128 tokens, 6
+# steps): parameters a peer (the reference's ModelConfig.param_count()),
+# the ledger's total bytes (same source), and per step the SSD-scan and
+# flash launches: every Mamba2 / mLSTM layer and every application of
+# zamba2's shared attention block, per peer, in the forward and again in
+# the remat recompute — except zamba2's shared attention block, which the
+# reference does not rematerialize (jax.checkpoint wraps the Mamba2
+# blocks only), so flash runs once per application a peer. The
+# parameters are the tree's, as Model.init
+# draws them (the reference's ModelConfig.param_count() is an estimate
+# here: 2,194,295,840 and 527,905,792)
+TRAIN_RECURRENT = {
+    "zamba2-2.7b": dict(params=2_063_209_520, comm_bytes=594_205_378_560,
+                        ssd_per_step=45 * 2 * 4, flash_per_step=9 * 4),
+    "xlstm-350m": dict(params=518_640_640, comm_bytes=149_704_704_000,
+                       ssd_per_step=21 * 2 * 4, flash_per_step=0),
+}
+# The federation_large_n runs: the paper's text model under adaptive
+# group sizing at N = 125 on each transport, and clustered placement at
+# N = 64 on shuffled regions; the kernel on, 20 iterations. The
+# reference's ledger by source, sim_seconds, regroup and placement logs
+# at seed 0 and the accuracy band at iteration 20 (seeds 0-2 widened by
+# their spread plus 0.05, as EXTENSION_REF), from the JAX package on the
+# CPU through tools/reference_constants.py
+LARGE_N_RUNS = {
+    "adaptive_sim": dict(n_peers=125, task="text", adaptive_m="tail_aware",
+                         link_profile="wireless", transport="sim"),
+    "adaptive_vector_sim": dict(n_peers=125, task="text",
+                                adaptive_m="tail_aware",
+                                link_profile="wireless",
+                                transport="vector_sim"),
+    "adaptive_super_sim": dict(n_peers=125, task="text",
+                               adaptive_m="tail_aware",
+                               link_profile="wireless",
+                               transport="super_sim"),
+    "placement_vector_sim": dict(n_peers=64, task="text",
+                                 placement="clustered",
+                                 link_profile="regions",
+                                 link_params={"shuffle": True},
+                                 transport="vector_sim"),
+}
+_ADAPTIVE_REF = dict(
+    comm_bytes=16_439_905_024, sim_seconds=243.53785902920532,
+    by_source={"agg/mar": 16_439_905_024},
+    regroup_log=[[3, [5, 5, 5], [3, 3, 3, 3, 3]],
+                 [7, [3, 3, 3, 3, 3], [2, 2, 2, 2, 2, 2, 2]]],
+    placement_log=[],
+    band=(0.0867, 0.2307))    # seeds 0-2: 0.1631, 0.166, 0.1514
+LARGE_N_REF = {
+    "adaptive_sim": _ADAPTIVE_REF,
+    "adaptive_vector_sim": _ADAPTIVE_REF,
+    "adaptive_super_sim": _ADAPTIVE_REF,
+    "placement_vector_sim": dict(
+        comm_bytes=6_458_177_280, sim_seconds=220.870892961519,
+        by_source={"agg/mar": 6_206_177_280,
+                   "placement_probe": 252_000_000},
+        regroup_log=[], placement_log=[[0, 62]],
+        band=(0.074, 0.2502)),   # seeds 0-2: 0.1729, 0.1748, 0.1494
+}
 TRAIN_ARGS = ("--arch", "musicgen-medium", "--peers", "4", "--batch", "2",
               "--seq", "128", "--local-steps", "1", "--steps", "6",
               "--seed", "0")
@@ -841,6 +974,105 @@ def phase_federation_extensions(torch, smi) -> int:
     return total
 
 
+def _run_large_n(torch, cfg, ops, iterations: int = 20) -> dict:
+    """``iterations`` steps of one large-N config on the card: ms per
+    step, and per step the group-mean launches and the depth of the grid
+    in force (a regroup lands after its step)."""
+    from repro_torch.core.federation import Federation
+
+    fed = Federation(cfg)           # the default device: cuda
+    state = fed.init_state()
+    step_s, depths, per_step = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(iterations):
+        depths.append(fed.plan.depth)
+        before = ops.launch_counts()["group_mean"]
+        t0 = time.perf_counter()
+        state = fed.step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(ops.launch_counts()["group_mean"] - before)
+    return {"fed": fed, "state": state, "step_s": step_s, "depths": depths,
+            "per_step": per_step, "launches": sum(per_step),
+            "accuracy": fed.evaluate(state)}
+
+
+def phase_federation_large_n(torch, smi) -> int:
+    """The large-N engines and controllers on the card (LARGE_N_RUNS, the
+    group mean in the kernel, 20 iterations): adaptive group sizing at
+    N = 125 (5 x 5 x 5) on the wireless profile under each transport,
+    and clustered placement at N = 64 on shuffled regions. Each run's
+    ledger by source, sim_seconds (within 1e-9), regroup_log and
+    placement_log are the reference's (LARGE_N_REF); the three
+    transports' ledgers equal each other; the adaptive runs regroup at
+    least once, onto grids with virtual slots; every step launches the
+    group mean once per round of the grid in force; accuracy at 20
+    within the reference's band; and a second run of each, in which
+    every aggregation is also computed by the kernel-off route from the
+    same input, agrees within 1e-5. Returns the main runs' launches."""
+    from repro_torch.core.federation import FederationConfig
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+
+    total, ledgers = 0, {}
+    for name, kw in LARGE_N_RUNS.items():
+        ref = LARGE_N_REF[name]
+        cfg = FederationConfig(kernel_group_mean=True, **kw)
+        r = _run_large_n(torch, cfg, ops)
+        fed, state = r["fed"], r["state"]
+        by_source = dict(fed.ledger.by_source)
+        regroups = [[t, list(a), list(b)] for t, a, b in fed.regroup_log]
+        placements = [list(x) for x in fed.placement_log]
+        row = {"run": name, "n_peers": cfg.n_peers,
+               "transport": cfg.transport, "grid_end": list(fed.plan.dims),
+               "comm_bytes": fed.comm_bytes, "sim_seconds": fed.sim_seconds,
+               "by_source": by_source, "regroup_log": regroups,
+               "placement_log": placements, "depths": r["depths"],
+               "launches_per_step": r["per_step"],
+               "launches": r["launches"], "accuracy_20": r["accuracy"],
+               "accuracy_band": ref["band"],
+               "first_step_ms": r["step_s"][0] * 1e3,
+               "ms_per_iteration": statistics.median(r["step_s"][1:]) * 1e3,
+               "card": smi}
+        check(by_source == ref["by_source"]
+              and fed.comm_bytes == ref["comm_bytes"],
+              f"{name}: ledger {by_source} != the reference's "
+              f"{ref['by_source']}")
+        check(abs(fed.sim_seconds - ref["sim_seconds"]) <= 1e-9,
+              f"{name}: sim_seconds {fed.sim_seconds} != "
+              f"{ref['sim_seconds']}")
+        check(regroups == ref["regroup_log"],
+              f"{name}: regroups {regroups} != {ref['regroup_log']}")
+        check(placements == ref["placement_log"],
+              f"{name}: placements {placements} != {ref['placement_log']}")
+        if cfg.adaptive_m:
+            check(regroups, f"{name}: no regroup")
+            ledgers[name] = (by_source, fed.sim_seconds, regroups)
+        else:
+            check(placements and by_source.get("placement_probe", 0) > 0,
+                  f"{name}: no placement regroup or no probe traffic")
+        check(r["per_step"] == r["depths"],
+              f"{name}: group_mean launches per step {r['per_step']} != "
+              f"the rounds of the grid in force {r['depths']}")
+        check(all(bool(torch.isfinite(x).all())
+                  for x in tree_leaves(state.params)),
+              f"{name}: params not finite")
+        lo, hi = ref["band"]
+        check(lo <= r["accuracy"] <= hi,
+              f"{name}: accuracy {r['accuracy']} at iteration 20 outside "
+              f"[{lo}, {hi}]")
+        shadow = _kernel_vs_plain_every_aggregation(torch, cfg)
+        row["kernel_vs_kernel_off_every_aggregation_max_diff"] = shadow
+        check(shadow <= 1e-5, f"{name}: the kernel's aggregation differs "
+                              f"from the kernel-off route's by {shadow}")
+        emit("federation_large_n", **row)
+        total += r["launches"]
+    check(len({json.dumps(v, sort_keys=True) for v in ledgers.values()})
+          == 1, f"federation_large_n: the transports' ledgers differ: "
+                f"{ledgers}")
+    return total
+
+
 def _elastic_checks(torch, tree_leaves, r) -> dict:
     """The elastic run: 27 peers, 13 from iteration 7, 26 from 14;
     survivors bit-exact across each change, joiners at the f32 mean."""
@@ -1179,16 +1411,17 @@ def phase_flash(torch, flush):
         row["lse_max_abs_err"] = lse_err
         rows.append(row)
         emit("flash_attention", **row)
-    rows.append(_flash_train_row(torch, flush, gen))
+    rows.append(_flash_train_row(torch, flush, gen, "2t", TRAIN_ATTN))
+    rows.append(_flash_train_row(torch, flush, gen, "2h", ZAMBA2_ATTN))
     return rows
 
 
-def _flash_train_row(torch, flush, gen):
-    """Row 2t: the kernel at the trainer's shape (musicgen-medium: b=2,
-    s=128, h=kvh=24, d=64, bf16), gated as the other rows; beside it,
-    for information, the plain backward (``attention_flash.flash_bwd``,
-    the reference's blockwise recompute) against SDPA's backward on the
-    same inputs."""
+def _flash_train_row(torch, flush, gen, tag: str, attn: dict):
+    """A row at a trainer's shape (2t, musicgen-medium: b=2, s=128,
+    h=kvh=24, d=64; 2h, zamba2's shared block: h=kvh=32, d=80; bf16),
+    gated as the other rows; beside it, for information, the plain
+    backward (``attention_flash.flash_bwd``, the reference's blockwise
+    recompute) against SDPA's backward on the same inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1196,7 +1429,7 @@ def _flash_train_row(torch, flush, gen):
     from repro_torch.models.attention_flash import flash_bwd
 
     b, s, dtype = 2, 128, torch.bfloat16
-    h, kvh, d = TRAIN_ATTN["h"], TRAIN_ATTN["kvh"], TRAIN_ATTN["d"]
+    h, kvh, d = attn["h"], attn["kvh"], attn["d"]
     q, k, v = (torch.randn((b, s, n, d), generator=gen,
                            device="cuda").to(dtype) for n in (h, kvh, kvh))
     do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
@@ -1207,7 +1440,7 @@ def _flash_train_row(torch, flush, gen):
     err = float((o.float() - o_ref.float()).abs().max())
     lse_err = float((lse - lse_ref).abs().max())
     check(err <= tol and lse_err <= tol,
-          f"flash 2t: o err {err}, lse err {lse_err} > {tol}")
+          f"flash {tag}: o err {err}, lse err {lse_err} > {tol}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pairs = s * (s + 1) // 2
     bound = attention_bound_ms(_nbytes(q, k, v, o, lse),
@@ -1220,7 +1453,7 @@ def _flash_train_row(torch, flush, gen):
                device_ms(torch, lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True), flush=flush),
                bound, b=b, s=s, h=h, kvh=kvh, d=d)
-    row["lse_max_abs_err"] = lse_err
+    row.update(lse_max_abs_err=lse_err, row=tag)
     lse4 = lse.view(b, kvh, h // kvh, s)
     row["plain_backward_ms"] = device_ms(
         torch, lambda: flash_bwd(q, k, v, o, lse4, do, True), flush=flush)
@@ -1591,7 +1824,7 @@ def ssd_flops(b: int, nh: int, s: int, dk: int, dv: int) -> int:
     return b * nh * (s // c) * 2 * (c * c * dk + c * c * dv + 2 * c * dk * dv)
 
 
-def _ssd_inputs(torch, gen, arch, s, dtype, h0_scale):
+def _ssd_inputs(torch, gen, arch, s, dtype, h0_scale, b=1):
     """Inputs shaped and scaled as the two families' prefill makes them.
     zamba2: B and C one [S, 64] draw broadcast over 80 heads (head stride
     0), v = x * dt, log_a = dt * A with A = -(1..80) per head and dt =
@@ -1602,7 +1835,7 @@ def _ssd_inputs(torch, gen, arch, s, dtype, h0_scale):
 
     dev = dict(device="cuda")
     if arch == "zamba2":
-        b, nh, dk, dv = 1, 80, 64, 64
+        nh, dk, dv = 80, 64, 64
         bc = torch.randn((2, b, 1, s, dk), generator=gen, **dev).to(dtype)
         q, k = (x.expand(b, nh, s, dk) for x in bc)
         dt = F.softplus(torch.randn((b, nh, s), generator=gen, **dev))
@@ -1611,7 +1844,7 @@ def _ssd_inputs(torch, gen, arch, s, dtype, h0_scale):
         v = (torch.randn((b, nh, s, dv), generator=gen, **dev)
              * dt[..., None]).to(dtype)
     else:
-        b, nh, dk, dv = 1, 4, 512, 513
+        nh, dk, dv = 4, 512, 513
         q = (torch.randn((b, nh, s, dk), generator=gen, **dev)
              / math.sqrt(dk)).to(dtype)
         k = torch.randn((b, nh, s, dk), generator=gen, **dev).to(dtype)
@@ -1744,6 +1977,121 @@ def phase_ssd_scan(torch, flush):
                    h0_scale=h0_scale, tol_is_relative=True)
         rows.append(row)
         emit("ssd_scan", **row)
+    return rows
+
+
+#: the trainer's scan shapes (train_recurrent: batch 2 of 128 tokens)
+SSD_TRAIN = dict(b=2, s=128)
+
+
+def phase_ssd_scan_grad(torch, flush):
+    """The SSD scan's autograd Function on the card (``_SsdScanFn``: the
+    kernel forward, the plain chunked scan's VJP backward) against
+    autograd of the plain sequential scan (``ssd_scan_ref``) at both
+    trainer shapes (zamba2: b=2, 80 heads, S=128, dk=dv=64, B and C one
+    [b, 1, S, 64] leaf broadcast at head stride 0; xlstm: b=2, 4 heads,
+    dk 512, dv 513), in f32 and bf16, with a nonzero h0 and both
+    cotangents (dy and dh_final). The forward (y and h_final, from the
+    kernel) is held as ``phase_ssd_scan`` holds it: each (batch, head)
+    within 1e-4 (f32) or 2e-2 (bf16) of its own largest magnitude. Each
+    gradient is held by its own dtype (dB and dC summed over the heads
+    by the broadcast): an f32 gradient
+    (every one of an f32 call; dlog_a and dh0, whose inputs are f32, of
+    a bf16 call) within 1e-4 of its largest magnitude; a bf16 one (dq,
+    dk, dv of a bf16 call) within 2e-2 of its own largest magnitude in
+    every (batch, head), the forward gate's measure. dlog_a is not held
+    per head: a head of fast decays (zamba2's last heads, a ~ -55 a
+    step) has a near-zero dlog_a, the sum of large terms of both signs,
+    so the chunked and sequential f32 sums part there by their rounding
+    (1.7e-2 of such a head's own peak, 1.1e-5 of the whole, on the CPU
+    at these shapes). Prints the forward kernel's, the plain
+    backward's (``ssd_scan_bwd``) and the plain forward's device times
+    beside the forward's bound. Returns the rows."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import ssd_scan_bwd, ssd_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for arch in ("zamba2", "xlstm"):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, log_a, h0 = _ssd_inputs(
+                torch, gen, arch, SSD_TRAIN["s"], dtype, 0.5,
+                b=SSD_TRAIN["b"])
+            leaves = [(x[:, :1] if arch == "zamba2" and i < 2 else x)
+                      .detach().clone().requires_grad_()
+                      for i, x in enumerate((q, k, v, log_a, h0))]
+            dy = torch.randn(v.shape, generator=gen, device="cuda"
+                             ).to(dtype)
+            dh = torch.randn(h0.shape, generator=gen, device="cuda")
+
+            def grads(fn):
+                qq, kk = (x.expand(q.shape) for x in leaves[:2])
+                y, h = fn(qq, kk, *leaves[2:])
+                g = torch.autograd.grad((y, h), leaves, (dy, dh))
+                return y.detach(), h.detach(), g
+
+            y, h, got = grads(ss.ssd_scan_fwd)
+            y_ref, h_ref, want = grads(ssd_scan_ref)
+            torch.cuda.synchronize()
+            name = str(dtype).replace("torch.", "")
+            # the forward the trainer runs at this shape, as phase_ssd_scan
+            # holds it: y and h_final in every (batch, head)
+            tol = SSD_TOL[name]
+            check(y.dtype == dtype and y.shape == v.shape
+                  and h.dtype == torch.float32 and h.shape == h0.shape,
+                  f"ssd_scan_grad {arch} {name}: bad forward outputs")
+            check(bool(torch.isfinite(y.float()).all())
+                  and bool(torch.isfinite(h).all()),
+                  f"ssd_scan_grad {arch} {name}: non-finite forward")
+            y_head, y_head_at = _worst_head_rel(torch, y.float(),
+                                                y_ref.float())
+            h_head, h_head_at = _worst_head_rel(torch, h, h_ref)
+            check(y_head <= tol and h_head <= tol,
+                  f"ssd_scan_grad {arch} {name}: forward per-head relative "
+                  f"error y {y_head} (head {y_head_at}), h {h_head} "
+                  f"(head {h_head_at}) beyond {tol}")
+            fwd = {"y_max_abs_err": float((y.float() - y_ref.float())
+                                          .abs().max()),
+                   "y_head_rel_err": y_head, "y_worst_head": y_head_at,
+                   "h_max_abs_err": float((h - h_ref).abs().max()),
+                   "h_head_rel_err": h_head, "h_worst_head": h_head_at,
+                   "tol": tol}
+            errs = {}
+            for gname, g, w in zip(("dq", "dk", "dv", "dlog_a", "dh0"),
+                                   got, want):
+                check(g.dtype == w.dtype and g.shape == w.shape,
+                      f"ssd_scan_grad {arch} {name}: {gname} is "
+                      f"{g.dtype} {tuple(g.shape)}")
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"ssd_scan_grad {arch} {name}: {gname} not finite")
+                err = float((g.float() - w.float()).abs().max())
+                peak = float(w.float().abs().max())
+                gtol = SSD_TOL[str(g.dtype).replace("torch.", "")]
+                if g.dtype == torch.bfloat16:
+                    rel, _ = _worst_head_rel(torch, g.float(), w.float())
+                else:
+                    rel = err / max(peak, 1e-30)
+                errs[gname] = {"max_abs_err": err, "rel_err": rel,
+                               "tol": gtol, "ref_max_abs": peak}
+                check(rel <= gtol, f"ssd_scan_grad {arch} {name}: {gname} "
+                                   f"relative error {rel} > {gtol}")
+            b, nh, s, dk = q.shape
+            dv = v.shape[3]
+            nbytes = (sum(_storage_bytes(t) for t in (q, k, v, log_a, h0))
+                      + _nbytes(v, h0.float()))
+            bound = attention_bound_ms(nbytes, ssd_flops(b, nh, s, dk, dv),
+                                       dtype == torch.bfloat16)
+            row = {"arch": arch, "dtype": name, "b": b, "nh": nh, "S": s,
+                   "dk": dk, "dv": dv, "forward": fwd, "grads": errs,
+                   "fwd_kernel_ms": device_ms(torch, lambda: ss._launch(
+                       q, k, v, log_a, h0), flush=flush),
+                   "bwd_plain_ms": device_ms(torch, lambda: ssd_scan_bwd(
+                       q, k, v, log_a, h0, dy, dh), flush=flush),
+                   "fwd_plain_ms": device_ms(torch, lambda: ssd_scan_ref(
+                       q, k, v, log_a, h0), reps=5, flush=flush),
+                   "fwd_bound_ms": max(bound.values()), **bound}
+            rows.append(row)
+            emit("ssd_scan_grad", **row)
     return rows
 
 
@@ -2248,35 +2596,29 @@ def _bit_equal_peers(torch, tree_leaves, tree) -> bool:
                for i in range(1, x.shape[0]))
 
 
-def phase_train(torch, smi):
-    """musicgen-medium at full width through the port's trainer,
-    ``launch.train.main`` in process: 48 layers, d 1536, 24 MHA heads of
-    64, gated FFN 6144, vocab 2048, bf16; 4 peers on the (2, 2) grid,
-    each a materialized copy of 1,818,379,776 parameters (f32 momentum),
-    batch 2 of 128 tokens a peer, one local step, 6 steps, seed 0. After
-    every step every peer's theta and m are bit-equal (full
-    participation over (2, 2) is a global mean broadcast to all); flash
-    launches TRAIN_FLASH_PER_STEP times a step; the ledger is the
-    reference's. Then one more step under ``torch.profiler``."""
+def _train_full_width(torch, smi, phase: str, args, expect: dict) -> dict:
+    """One full-width run of ``launch.train.main`` in process (``args``:
+    its command line), the state updated in place. After every step
+    every peer's theta and m are bit-equal (full participation over
+    (2, 2) is a global mean broadcast to all); each kernel of ``expect``
+    (``{kernel: launches a step}``) launches that often a step; the
+    ledger is ``expect["comm_bytes"]``; the peak is under the card's
+    memory. Then one more step under ``torch.profiler`` (with the SSD
+    scan's plain backward under its own label where the scan runs).
+    Returns the main path's launch counts."""
     import gc
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.core.fl_device import SPAN_AGGREGATE, SPAN_LOCAL
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import SPAN_BACKWARD
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("musicgen-medium")
-    check(cfg.family == "audio" and cfg.num_layers == TRAIN_LAYERS
-          and cfg.dtype == "bfloat16" and cfg.attn_impl == "flash"
-          and cfg.remat == "block" and cfg.param_count() == TRAIN_PARAMS
-          and (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-          == (TRAIN_ATTN["h"], TRAIN_ATTN["kvh"], TRAIN_ATTN["d"]),
-          f"unexpected config {cfg}")
+    n_steps = int(args[args.index("--steps") + 1])
     steps, seen = [], {}
 
     def on_step(info):
@@ -2288,8 +2630,8 @@ def phase_train(torch, smi):
                           torch, tree_leaves, state["params"])
                       and _bit_equal_peers(torch, tree_leaves,
                                            state["momentum"])})
-        emit("train_step", **steps[-1])
-        if info["t"] + 1 < int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1]):
+        emit(f"{phase}_step", **steps[-1])
+        if info["t"] + 1 < n_steps:
             return
         # the main path ends here: read its counts before the extra step
         seen["launches"] = ops.launch_counts()
@@ -2304,49 +2646,109 @@ def phase_train(torch, smi):
             info["step_fn"](state, info["batch"])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        labels = (SPAN_LOCAL, SPAN_AGGREGATE)
+        labels = (SPAN_LOCAL, SPAN_AGGREGATE, SPAN_BACKWARD)
         seen["profile"] = {
             "local_update": _label_profile(torch, prof, SPAN_LOCAL, 1),
             "aggregate": _label_profile(torch, prof, SPAN_AGGREGATE, 1),
-            **_device_profile(torch, prof, wall_us, 1, "train profile",
+            **_device_profile(torch, prof, wall_us, 1, f"{phase} profile",
                               labels=labels)}
+        if expect.get("ssd_scan"):      # the scan's plain backward
+            seen["profile"]["ssd_scan_backward"] = _label_profile(
+                torch, prof, SPAN_BACKWARD, 1)
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    check(train.main(list(TRAIN_ARGS), on_step=on_step) == 0,
-          "train: main did not return 0")
+    check(train.main(list(args), on_step=on_step) == 0,
+          f"{phase}: main did not return 0")
     run_s = time.perf_counter() - t0
-    ms = [s["ms"] for s in steps]
+    ms = [st["ms"] for st in steps]
     med = statistics.median(ms[1:])
     launches = seen["launches"]
     total = torch.cuda.get_device_properties(0).total_memory
-    emit("train", arch=cfg.name, args=list(TRAIN_ARGS),
-         params_config=cfg.param_count(),
+    kernels = {k: v for k, v in expect.items() if k in launches}
+    arch = args[args.index("--arch") + 1]
+    emit(phase, arch=arch, args=list(args),
          params_per_peer_tree=seen["params_per_peer"],
-         losses=[s["loss"] for s in steps], first_step_ms=ms[0],
+         losses=[st["loss"] for st in steps], first_step_ms=ms[0],
          median_ms_steps_2_6=med,
          tokens_per_s=TRAIN_TOKENS_PER_STEP / (med / 1e3),
-         peak_memory_bytes=seen["peak"], card_memory_bytes=total,
-         launches=launches, expected_flash=TRAIN_FLASH_PER_STEP * len(steps),
+         peak_memory_bytes=seen["peak"],
+         peak_gb=seen["peak"] / 1e9, card_memory_bytes=total,
+         launches=launches,
+         expected_launches={k: v * len(steps) for k, v in kernels.items()},
          comm_total_bytes=seen["ledger"], run_s=run_s, card=smi)
-    emit("train_profile", **seen["profile"], card=smi)
-    check(len(steps) == 6, f"train: {len(steps)} steps ran")
-    check(all(math.isfinite(s["loss"]) for s in steps),
-          f"train: a loss is not finite: {[s['loss'] for s in steps]}")
-    check(all(s["peers_bit_equal"] for s in steps),
-          "train: the peers' theta or m differ after a step")
-    check(launches["flash_attention"] == TRAIN_FLASH_PER_STEP * len(steps),
-          f"train: flash launched {launches['flash_attention']} times, "
-          f"expected {TRAIN_FLASH_PER_STEP * len(steps)}")
-    check(seen["ledger"] == TRAIN_COMM_BYTES,
-          f"train: ledger {seen['ledger']} != the reference's "
-          f"{TRAIN_COMM_BYTES}")
+    emit(f"{phase}_profile", arch=arch, **seen["profile"], card=smi)
+    check(len(steps) == n_steps, f"{phase}: {len(steps)} steps ran")
+    check(all(math.isfinite(st["loss"]) for st in steps),
+          f"{phase} {arch}: a loss is not finite: "
+          f"{[st['loss'] for st in steps]}")
+    check(all(st["peers_bit_equal"] for st in steps),
+          f"{phase} {arch}: the peers' theta or m differ after a step")
+    for name, per_step in kernels.items():
+        check(launches[name] == per_step * len(steps),
+              f"{phase} {arch}: {name} launched {launches[name]} times, "
+              f"expected {per_step * len(steps)}")
+    check(seen["ledger"] == expect["comm_bytes"],
+          f"{phase} {arch}: ledger {seen['ledger']} != the reference's "
+          f"{expect['comm_bytes']}")
     check(seen["peak"] < total,
-          f"train: peak {seen['peak']} >= the card's {total}")
+          f"{phase} {arch}: peak {seen['peak']} >= the card's {total}")
+    check(seen["params_per_peer"] == expect.get("params",
+                                                seen["params_per_peer"]),
+          f"{phase} {arch}: {seen['params_per_peer']} parameters a peer, "
+          f"expected {expect.get('params')}")
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_train(torch, smi):
+    """musicgen-medium at full width through the port's trainer: 48
+    layers, d 1536, 24 MHA heads of 64, gated FFN 6144, vocab 2048,
+    bf16; 4 peers on the (2, 2) grid, each a materialized copy of
+    1,818,379,776 parameters (f32 momentum), batch 2 of 128 tokens a
+    peer, one local step, 6 steps, seed 0; flash launches
+    TRAIN_FLASH_PER_STEP times a step (``_train_full_width``)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("musicgen-medium")
+    check(cfg.family == "audio" and cfg.num_layers == TRAIN_LAYERS
+          and cfg.dtype == "bfloat16" and cfg.attn_impl == "flash"
+          and cfg.remat == "block" and cfg.param_count() == TRAIN_PARAMS
+          and (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+          == (TRAIN_ATTN["h"], TRAIN_ATTN["kvh"], TRAIN_ATTN["d"]),
+          f"unexpected config {cfg}")
+    return _train_full_width(torch, smi, "train", TRAIN_ARGS, {
+        "flash_attention": TRAIN_FLASH_PER_STEP, "ssd_scan": 0,
+        "comm_bytes": TRAIN_COMM_BYTES})
+
+
+def phase_train_recurrent(torch, smi):
+    """zamba2-2.7b (54 layers: 45 Mamba2 and 9 applications of one shared
+    attention block, d 2560; 2,063,209,520 parameters) and xlstm-350m
+    (21 mLSTM + 3 sLSTM, d 1024; 518,640,640) trained at full width,
+    bf16, seed 0, with the musicgen run's traffic (TRAIN_ARGS): the
+    SSD-scan kernel in every Mamba2 / mLSTM layer's forward and remat
+    recompute, flash in zamba2's shared block, the backward through the
+    plain chunked scan's VJP (``_train_full_width``'s gates, the launch
+    counts of TRAIN_RECURRENT). Returns the summed launch counts."""
+    from repro_torch.configs import get_config
+
+    totals = {}
+    for arch, want in TRAIN_RECURRENT.items():
+        cfg = get_config(arch)
+        check(cfg.family in ("ssm", "hybrid") and cfg.dtype == "bfloat16"
+              and cfg.attn_impl == "flash" and cfg.remat == "block",
+              f"unexpected config {cfg}")
+        args = ("--arch", arch, *TRAIN_ARGS[2:])
+        launches = _train_full_width(torch, smi, "train_recurrent", args, {
+            "ssd_scan": want["ssd_per_step"],
+            "flash_attention": want["flash_per_step"],
+            "comm_bytes": want["comm_bytes"], "params": want["params"]})
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
 
 
 def _parity_batches(np, cfg, n: int, steps: int, prefix: int):
@@ -2374,76 +2776,19 @@ def phase_train_parity(torch):
     f32 differences of a half-quantum may become a quantum: such flips
     <= 0.5% of a leaf and <= 2 quanta of the leaf's largest value). Then
     a ``--resize-at`` CLI run on the card with the survivors bit-exact
-    across the resize and the reference's comm line, and xlstm-350m's
-    smoke config refused on the card (its scan kernel is forward-only).
+    across the resize and the reference's comm line.
     """
     import dataclasses
 
-    import numpy as np
-
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core.aggregation import build_pipeline
-    from repro_torch.core.fl_device import init_fl_state, make_fl_train_step
-    from repro_torch.core.moshpit import plan_grid
     from repro_torch.launch import train
-    from repro_torch.models.model import Model
-    from repro_torch.models.transformer import PREFIX_LEN
     from repro_torch.tree import tree_leaves
 
-    masks = {1: ([1, 0, 1, 1], [1, 0, 0, 1]), 2: ([1, 1, 1, 1],
-                                                  [1, 1, 0, 1])}
     for arch in ("starcoder2-3b", "musicgen-medium"):
         cfg = dataclasses.replace(get_smoke_config(arch), num_layers=2,
                                   dtype="float32")
-        model = Model(cfg)
-        prefix = PREFIX_LEN.get(cfg.frontend, 0)
-        theta0 = model.init(seed=0, device="cpu")
-        batches = _parity_batches(np, cfg, 4, 3, prefix)
-        for case in ("full", "int8_ef_bf16"):
-            wire = (dict(compress="int8_ef", comm_dtype="bfloat16")
-                    if case != "full" else {})
-            runs = {}
-            for dev in ("cpu", "cuda"):
-                grid = plan_grid(4)
-                pipe = build_pipeline("mar", grid, backend="device", **wire)
-                st = init_fl_state(model, 4, device=dev, pipeline=pipe,
-                                   params=theta0)
-                step = make_fl_train_step(model, grid, lr=0.1,
-                                          pipeline=pipe)
-                losses = []
-                for t, b in enumerate(batches):
-                    mk = {}
-                    if case != "full" and t in masks:
-                        mk = {"mask": torch.tensor(masks[t][0],
-                                                   dtype=torch.float32),
-                              "agg_mask": torch.tensor(
-                                  masks[t][1], dtype=torch.float32)}
-                    st, met = step(st, {k: torch.from_numpy(v)
-                                        for k, v in b.items()}, **mk)
-                    losses.append(float(met["loss"]))
-                runs[dev] = (losses, [x.cpu() for x in
-                                      tree_leaves(st["params"])])
-            loss_err = max(abs(a - b) for a, b in zip(runs["cpu"][0],
-                                                      runs["cuda"][0]))
-            theta_err, flips = 0.0, 0.0
-            for c, g in zip(runs["cpu"][1], runs["cuda"][1]):
-                d = (c - g).abs()
-                theta_err = max(theta_err, float(d.max()))
-                flips = max(flips, float((d > 1e-4).float().mean()))
-                if case == "full":
-                    check(float(d.max()) <= 1e-4,
-                          f"train_parity {arch} {case}: theta {d.max()}")
-                else:
-                    check(flips <= 5e-3 and float(d.max())
-                          <= 1e-4 + 2 * float(c.abs().max()) / 127,
-                          f"train_parity {arch} {case}: theta "
-                          f"{float(d.max())}, flips {flips}")
-            emit("train_parity", arch=cfg.name, layers=2, case=case,
-                 losses_cpu=runs["cpu"][0], losses_cuda=runs["cuda"][0],
-                 loss_max_abs_err=loss_err, theta_max_abs_err=theta_err,
-                 theta_flip_share=flips, prefix=prefix)
-            check(loss_err <= 1e-4,
-                  f"train_parity {arch} {case}: loss err {loss_err}")
+        _card_vs_cpu(torch, "train_parity", cfg,
+                     ("full", "int8_ef_bf16"))
 
     # --resize-at on the card: survivors bit-exact, the reference's line
     seen = []
@@ -2478,17 +2823,98 @@ def phase_train_parity(torch):
     check(line == TRAIN_CLI_COMM["starcoder2-3b resize"],
           f"train_resize: {line!r} is not the reference's")
 
-    # the recurrent families cannot train on the card yet
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            train.main(["--arch", "xlstm-350m", "--smoke", "--steps", "1",
-                        "--peers", "2", "--seq", "32"])
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    emit("train_refuses_ssm", arch="xlstm-350m", message=refused)
-    check("ssd_scan" in refused and "Queue 1 item 19" in refused,
-          f"train: xlstm-350m trained on the card: {refused!r}")
+
+def _card_vs_cpu(torch, phase: str, cfg, cases) -> None:
+    """3 steps of ``make_fl_train_step`` from one theta^0 and one batch
+    stream (2 local steps of 2 microbatches) on the card and on the CPU,
+    for each case (``"full"``, or ``"int8_ef_bf16"``: U != A masks, int8
+    EF over a bf16 wire): losses within 1e-4, the final theta within
+    1e-4 (int8: the flip rule of ``phase_train_parity``)."""
+    import numpy as np
+
+    from repro_torch.core.aggregation import build_pipeline
+    from repro_torch.core.fl_device import init_fl_state, make_fl_train_step
+    from repro_torch.core.moshpit import plan_grid
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import PREFIX_LEN
+    from repro_torch.tree import tree_leaves
+
+    masks = {1: ([1, 0, 1, 1], [1, 0, 0, 1]), 2: ([1, 1, 1, 1],
+                                                  [1, 1, 0, 1])}
+    arch = cfg.name
+    model = Model(cfg)
+    prefix = PREFIX_LEN.get(cfg.frontend, 0)
+    theta0 = model.init(seed=0, device="cpu")
+    batches = _parity_batches(np, cfg, 4, 3, prefix)
+    for case in cases:
+        wire = (dict(compress="int8_ef", comm_dtype="bfloat16")
+                if case != "full" else {})
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            grid = plan_grid(4)
+            pipe = build_pipeline("mar", grid, backend="device", **wire)
+            st = init_fl_state(model, 4, device=dev, pipeline=pipe,
+                               params=theta0)
+            step = make_fl_train_step(model, grid, lr=0.1, pipeline=pipe)
+            losses = []
+            for t, b in enumerate(batches):
+                mk = {}
+                if case != "full" and t in masks:
+                    mk = {"mask": torch.tensor(masks[t][0],
+                                               dtype=torch.float32),
+                          "agg_mask": torch.tensor(
+                              masks[t][1], dtype=torch.float32)}
+                st, met = step(st, {k: torch.from_numpy(v)
+                                    for k, v in b.items()}, **mk)
+                losses.append(float(met["loss"]))
+            runs[dev] = (losses, [x.cpu() for x in
+                                  tree_leaves(st["params"])])
+        loss_err = max(abs(a - b) for a, b in zip(runs["cpu"][0],
+                                                  runs["cuda"][0]))
+        theta_err, flips = 0.0, 0.0
+        for c, g in zip(runs["cpu"][1], runs["cuda"][1]):
+            d = (c - g).abs()
+            theta_err = max(theta_err, float(d.max()))
+            flips = max(flips, float((d > 1e-4).float().mean()))
+            if case == "full":
+                check(float(d.max()) <= 1e-4,
+                      f"{phase} {arch} {case}: theta {d.max()}")
+            else:
+                check(flips <= 5e-3 and float(d.max())
+                      <= 1e-4 + 2 * float(c.abs().max()) / 127,
+                      f"{phase} {arch} {case}: theta "
+                      f"{float(d.max())}, flips {flips}")
+        emit(phase, arch=arch, layers=cfg.num_layers, case=case,
+             losses_cpu=runs["cpu"][0], losses_cuda=runs["cuda"][0],
+             loss_max_abs_err=loss_err, theta_max_abs_err=theta_err,
+             theta_flip_share=flips, prefix=prefix)
+        check(loss_err <= 1e-4, f"{phase} {arch} {case}: loss err "
+                                f"{loss_err}")
+
+
+def phase_train_recurrent_parity(torch):
+    """The recurrent families' smoke configs at 2 layers in f32 (zamba2:
+    one Mamba2 layer and the shared attention block, attn_every 2;
+    xlstm: one mLSTM and one sLSTM layer): 3 steps on the card (the
+    SSD-scan kernel forward, the plain VJP backward) and on the CPU
+    (the plain scan both ways) from one theta^0, losses and theta
+    within 1e-4 (``_card_vs_cpu``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+
+    for arch, kw in (("zamba2-2.7b", dict(attn_every=2)),
+                     ("xlstm-350m", dict(slstm_every=2))):
+        cfg = dataclasses.replace(get_smoke_config(arch), num_layers=2,
+                                  dtype="float32", **kw)
+        ops.reset_launch_counts()
+        _card_vs_cpu(torch, "train_recurrent_parity", cfg, ("full",))
+        n = ops.launch_counts()["ssd_scan"]
+        # 3 steps x 4 peers x 2 local steps x 2 microbatches, one scan
+        # layer, forward and remat recompute
+        check(n == 3 * 4 * 4 * 2, f"train_recurrent_parity {arch}: "
+                                  f"{n} SSD-scan launches, expected 96")
 
 
 def ptxas_summary(report: dict, sources) -> list:
@@ -2584,11 +3010,13 @@ def main() -> None:
     paged_rows = phase_paged(torch, flush)
     decode_rows = phase_decode(torch, flush)
     ssd_rows = phase_ssd_scan(torch, flush)
+    phase_ssd_scan_grad(torch, flush)
     del flush
     phase_vision(torch)
     launches = phase_federation(torch, smi)
     launches += phase_federation_extensions(torch, smi)
     launches += phase_figures(torch, smi)
+    launches += phase_federation_large_n(torch, smi)
     phase_profile(torch)
     serve_launches = phase_serve(torch, smi)
     phase_serve_parity(torch)
@@ -2598,18 +3026,21 @@ def main() -> None:
     phase_serve_moe_parity(torch)
     phase_checkpoint(torch)
     train_launches = phase_train(torch, smi)
+    recurrent_train_launches = phase_train_recurrent(torch, smi)
     phase_train_parity(torch)
+    phase_train_recurrent_parity(torch)
 
     # group_mean: the round row of the main path (the quickstart's theta
     # and m, N=27, round 0, one launch), its error the largest over the
     # three rounds, its launches those of the quickstart, of its
-    # protocol-extension runs and of the smoke figures (kernel on); the
-    # attention kernels: their first (bf16,
+    # protocol-extension runs, of the smoke figures and of the large-N
+    # runs (kernel on); the attention kernels: their first (bf16,
     # serving-path) row; ssd_scan: its first (zamba2, bf16) row.
     # Launches: each path's count, read right after it ran, summed over
     # the paths a kernel lies on (flash: starcoder2, zamba2 and moonshot
-    # prefills and the musicgen training steps; paged: starcoder2 and
-    # moonshot decode steps)
+    # prefills and the musicgen and zamba2 training steps; paged:
+    # starcoder2 and moonshot decode steps; ssd_scan: the zamba2 and
+    # xlstm prefills and training steps)
     qs = [r for r in round_rows if r["kind"] == "quickstart"]
     print(json.dumps({"kernels": [
         {**kernel_entry("group_mean",
@@ -2624,7 +3055,9 @@ def main() -> None:
                      serve_launches["flash_attention"]
                      + recurrent_launches["flash_attention"]
                      + moe_launches["flash_attention"]
-                     + train_launches["flash_attention"], flash_rows[0]),
+                     + train_launches["flash_attention"]
+                     + recurrent_train_launches["flash_attention"],
+                     flash_rows[0]),
         kernel_entry("paged_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/paged_attention.py:76",
@@ -2638,7 +3071,8 @@ def main() -> None:
                      + moe_launches["decode_attention"], decode_rows[0]),
         kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:70",
-                     recurrent_launches["ssd_scan"], ssd_rows[0]),
+                     recurrent_launches["ssd_scan"]
+                     + recurrent_train_launches["ssd_scan"], ssd_rows[0]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -599,6 +599,40 @@ class AggregationPipeline:
                 kd_logit_bytes, num_rounds=self.aggregator.num_rounds)
         return mp
 
+    def array_plan(self, mask: Optional[Any], model_bytes: float,
+                   n_active: int, use_kd: bool = False,
+                   kd_logit_bytes: float = 0) -> Any:
+        """:meth:`message_plan` in array form — same messages, same
+        order, no per-message Python objects. What ``plan_format ==
+        "array"`` transports (``vector_sim``) consume directly."""
+        from repro_torch.core import transport
+        ap = transport.build_array_plan(
+            self.aggregator.name, self.aggregator.plan, mask,
+            self.wire_model_bytes(model_bytes, n_active),
+            num_rounds=self.aggregator.num_rounds)
+        if use_kd and self.aggregator.name == "mar":
+            ap = transport.with_mkd_traffic_arrays(
+                ap, self.aggregator.plan, mask, model_bytes,
+                kd_logit_bytes, num_rounds=self.aggregator.num_rounds)
+        return ap
+
+    def super_plan(self, mask: Optional[Any], model_bytes: float,
+                   n_active: int, use_kd: bool = False,
+                   kd_logit_bytes: float = 0) -> Any:
+        """Symbolic :meth:`message_plan` — the frozen recipe
+        ``plan_format == "super"`` transports (``super_sim``) split
+        into closed-form and materialized tiers. Wire sizes go through
+        the same stage transforms; MKD rounds ride at raw model bytes,
+        exactly as in the list and array builders."""
+        from repro_torch.core import transport
+        return transport.build_super_plan(
+            self.aggregator.name, self.aggregator.plan, mask,
+            self.wire_model_bytes(model_bytes, n_active),
+            num_rounds=self.aggregator.num_rounds,
+            use_kd=use_kd and self.aggregator.name == "mar",
+            raw_model_bytes=model_bytes,
+            kd_logit_bytes=kd_logit_bytes)
+
     def record_transcript(self, ledger: CommLedger, transcript: Any,
                           n_active: int, model_bytes: int,
                           use_kd: bool = False,

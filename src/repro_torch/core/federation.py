@@ -37,9 +37,13 @@ draws=)`` take the reference's own so the two packages can be run step
 for step. Everything numpy-seeded (data, partition, masks, links, the
 ledger) is bit-identical.
 
-Adaptive group sizing, placement and same-N regroups wait for a later
-slice; they raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports them.
+Adaptive group sizing (``cfg.adaptive_m``, ``core/adaptive.py``) and
+topology-aware placement (``cfg.placement``, ``core/placement.py``)
+watch every transcript and regroup the grid at the same N through
+:meth:`Federation.apply_membership`; ``regroup_log`` and
+``placement_log`` record each regroup. ``cfg.transport`` picks the
+``"sim"`` engine or the large-N ``"vector_sim"`` and ``"super_sim"``,
+which consume array and symbolic plans and give the same transcripts.
 """
 from __future__ import annotations
 
@@ -52,10 +56,13 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import topology
+from repro_torch.core.adaptive import (build_controller, observe_regroups,
+                                      validate_proposal)
 from repro_torch.core.aggregation import (TECHNIQUES, AggregationPipeline,
                                           CommLedger, build_pipeline)
 from repro_torch.core.mkd import mkd_rounds
 from repro_torch.core.moshpit import GridPlan, plan_grid
+from repro_torch.core.placement import build_placement
 from repro_torch.core.replan import (MembershipChange,
                                      plan_membership_change,
                                      regroup_change, select_survivors)
@@ -82,13 +89,6 @@ SPAN_AGGREGATE = "federation.aggregate"
 
 #: seed offsets of the step's generators (the reference splits one key)
 _SEED_BATCH, _SEED_KD, _SEED_AGG = 7, 8, 9
-
-#: (field, value that means "off", ROADMAP.md item that ports it)
-_UNPORTED_FIELDS = (
-    ("adaptive_m", None, "Queue 1 item 13 (adaptive group sizing)"),
-    ("placement", None, "Queue 1 item 13 (topology-aware placement)"),
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class FederationConfig:
@@ -144,11 +144,6 @@ class FederationConfig:
     seed: int = 0
 
     def __post_init__(self):
-        for name, off, item in _UNPORTED_FIELDS:
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"FederationConfig.{name} is not ported yet "
-                    f"(ROADMAP.md, {item})")
         if self.transport in UNPORTED_TRANSPORTS:
             raise NotImplementedError(
                 f"transport {self.transport!r} is not ported yet "
@@ -223,6 +218,20 @@ class Federation:
         self.cfg = cfg
         self.plan = cfg.grid()
         self.pipeline = self._build_pipeline(cfg, self.plan)
+        self.controller = None
+        if cfg.adaptive_m is not None:
+            self.controller = build_controller(
+                cfg.adaptive_m, self.plan, **(cfg.adaptive_m_params or {}))
+        # (iteration, old_dims, new_dims) of every adaptive regroup
+        self.regroup_log: List[Tuple[int, Tuple[int, ...],
+                                     Tuple[int, ...]]] = []
+        self.placement_policy = None
+        if cfg.placement is not None:
+            self.placement_policy = build_placement(
+                cfg.placement, self.plan, seed=cfg.seed,
+                **(cfg.placement_params or {}))
+        # (iteration, peers_moved) of every placement regroup
+        self.placement_log: List[Tuple[int, int]] = []
         self.ledger = CommLedger()
         self.network = build_transport(cfg.transport, cfg.n_peers,
                                        profile=cfg.link_profile,
@@ -231,12 +240,8 @@ class Federation:
         self.last_transcript = None
         # message plans by (mask, KD shape): identical steps reuse them
         self._plan_cache: Dict[Tuple, Any] = {}
-        # (iteration, old_dims, new_dims) of every adaptive regroup and
-        # (iteration, peers_moved) of every placement regroup: empty until
-        # adaptive_m and placement are ported (ROADMAP.md Queue 1 item 13)
-        self.regroup_log: List[Tuple[int, Tuple[int, ...],
-                                     Tuple[int, ...]]] = []
-        self.placement_log: List[Tuple[int, int]] = []
+        if self.placement_policy is not None:
+            self.placement_policy.bind_prober(self._run_probe)
         self.lifecycle = lifecycle if lifecycle is not None else \
             build_lifecycle(cfg.churn, cfg.n_peers, seed=cfg.seed,
                             participation_rate=cfg.participation_rate,
@@ -352,20 +357,32 @@ class Federation:
         rules for wire state), the data shards follow the survivor map
         (joiners draw theirs from a new-N partition), the pipeline is
         rebuilt for ``change.new_plan``, and the lifecycle and the
-        transport links re-bind to the new fleet. A same-N change (an
-        adaptive-M or placement regroup) waits for
-        ``core/adaptive.validate_proposal`` (ROADMAP.md, Queue 1 item
-        13) and raises.
+        transport links, controller and placement policy re-bind to the
+        new fleet. A same-N change (an adaptive-M or placement regroup,
+        checked by ``core/adaptive.validate_proposal``): the grid dims or
+        placement swap and the pipeline re-binds
+        (:meth:`AggregationPipeline.with_plan`); peer state is untouched.
+        Either way the plan cache is dropped. The group-mean round
+        tables (``mar_allreduce.round_index``) are keyed on the frozen
+        plan, placement included, so the new grid builds its own and
+        the kernel never reads a row through an old round's order.
         """
         if change.old_n != self.cfg.n_peers:
             raise ValueError(
                 f"change was planned for {change.old_n} peers, fleet "
                 f"has {self.cfg.n_peers}")
         if change.same_n:
-            raise NotImplementedError(
-                "same-N membership changes (adaptive-M and placement "
-                "regroups) need core/adaptive.validate_proposal, which "
-                "is not ported yet (ROADMAP.md, Queue 1 item 13)")
+            n = self.cfg.n_peers
+            validate_proposal(change.new_plan, n)
+            # full-plan equality: a placement-only change (same dims,
+            # new peer->slot permutation) is a real regroup too
+            if change.new_plan == self.plan:
+                return state
+            self.plan = change.new_plan
+            self._plan_cache.clear()
+            self.pipeline = self.pipeline.with_plan(change.new_plan)
+            pipe = self.pipeline.resize_state(state.pipe, n, n)
+            return dataclasses.replace(state, pipe=pipe)
 
         old_n, new_n = change.old_n, change.new_n
         k = len(change.survivors)
@@ -400,6 +417,13 @@ class Federation:
             self.lifecycle.resize(new_n)
         # survivors keep their modeled links; joiners draw fresh ones
         self.network.resize(new_n)
+        if self.controller is not None:
+            # new fleet, new candidate ladder: the controller re-anchors
+            self.controller.rebind(change.new_plan)
+        if self.placement_policy is not None:
+            # stale link evidence and permutation sizes are dropped; the
+            # policy re-learns and re-emits for the new fleet
+            self.placement_policy.rebind(change.new_plan)
         return dataclasses.replace(state, params=params,
                                    momentum=momentum, pipe=pipe)
 
@@ -417,12 +441,23 @@ class Federation:
 
     def regroup(self, state: FederationState,
                 new_plan: GridPlan) -> FederationState:
-        """Swap the MAR grid mid-run without touching membership: a
-        same-N :class:`MembershipChange` through :meth:`apply_membership`
-        (raises until ROADMAP.md Queue 1 item 13 lands)."""
+        """Swap the MAR grid mid-run without touching membership (the
+        adaptive-M hook): a same-N :class:`MembershipChange` through
+        :meth:`apply_membership`; peer state, data shards, links and
+        lifecycle are untouched."""
         return self.apply_membership(
             state, regroup_change(self.plan, new_plan,
                                   iteration=state.iteration))
+
+    def _run_probe(self, mplan) -> Any:
+        """Run a placement probe plan through the live transport and
+        ledger its traffic under its own source. Probe rounds advance
+        the transport's iteration counter (and so the loss stream) like
+        any other traffic: they are real messages."""
+        tr = self.network.run(mplan)
+        self.ledger.record("placement_probe", tr.total_bytes)
+        self.ledger.record_time(tr.iteration_s)
+        return tr
 
     # ------------------------------------------------------------------
     # local update: damped momentum SGD over B minibatches, all peers
@@ -472,17 +507,23 @@ class Federation:
 
     def _build_plan(self, a: np.ndarray, n_active: int, use_kd: bool,
                     kd_logit_bytes: float) -> Any:
-        """This iteration's message plan, memoized on (mask, KD shape):
-        within a stable membership every step rebuilds the identical
-        plan. A membership change clears the cache."""
+        """This iteration's plan in the format the transport negotiates
+        (``Transport.plan_format``): symbolic recipes for ``super_sim``,
+        array plans for ``vector_sim``, list plans for ``sim``. Memoized
+        on (mask, KD shape): within a stable membership every step
+        rebuilds the identical plan. A membership change or regroup
+        clears the cache."""
         key = (a.tobytes(), use_kd)
         plan = self._plan_cache.get(key)
         if plan is None:
             if len(self._plan_cache) >= 8:
                 self._plan_cache.clear()
-            plan = self.pipeline.message_plan(
-                a, self.model_bytes, n_active, use_kd=use_kd,
-                kd_logit_bytes=kd_logit_bytes)
+            build = {"super": self.pipeline.super_plan,
+                     "array": self.pipeline.array_plan}.get(
+                         self.network.plan_format,
+                         self.pipeline.message_plan)
+            plan = build(a, self.model_bytes, n_active, use_kd=use_kd,
+                         kd_logit_bytes=kd_logit_bytes)
             self._plan_cache[key] = plan
         return plan
 
@@ -585,9 +626,25 @@ class Federation:
             self.pipeline.record_transcript(
                 self.ledger, transcript, n_active, self.model_bytes,
                 use_kd=use_kd, kd_logit_bytes=kd_logit_bytes)
-        return dataclasses.replace(
+        out = dataclasses.replace(
             state, params=out["p"], momentum=out["m"],
             iteration=state.iteration + 1, pipe=pipe, kd_lambda=kd_lambda)
+        return self._observe(state.iteration, transcript, out)
+
+    def _observe(self, iteration: int, transcript: Any,
+                 out: FederationState) -> FederationState:
+        """The controllers see every transcript (slow wireless tails and
+        churn demotions alike); their proposals regroup before the next
+        iteration."""
+        for new_plan, log, entry in observe_regroups(
+                iteration, transcript, self.plan, self.controller,
+                self.placement_policy):
+            out = self.apply_membership(
+                out, regroup_change(self.plan, new_plan,
+                                    iteration=iteration))
+            (self.regroup_log if log == "regroup"
+             else self.placement_log).append(entry)
+        return out
 
     # ------------------------------------------------------------------
     # evaluation

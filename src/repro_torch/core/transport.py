@@ -6,7 +6,7 @@ iteration". A :class:`MessagePlan` is the bridge between the aggregation
 strategies (``aggregation.py``) and the discrete-event network simulator
 (``runtime/network.py``): every registered technique can be *unrolled*
 into per-round ``(src, dst, nbytes)`` messages over the
-:class:`~repro.core.moshpit.GridPlan` schedule, the simulator times and
+:class:`~repro_torch.core.moshpit.GridPlan` schedule, the simulator times and
 possibly drops them, and the resulting transcript feeds the
 ``CommLedger`` — measured traffic replacing the analytic formulas
 (which remain as cross-checked oracles; see ``tests/test_network.py``).
@@ -28,17 +28,29 @@ exactly at full participation:
   are loopback: bytes are counted (keeping parity with the analytic
   ``2 (n + #groups)`` convention) but transfer time is zero.
 
-This is the list-plan half of the JAX package's ``repro/core/transport.py``
-(numpy, copied with its imports rewritten): per-round tuples of
-:class:`Message` objects, and the MKD rounds that ride in front of them.
-The array and symbolic plans of the large-N engines are not ported yet
-(ROADMAP.md, Queue 1 item 13).
+Two plan representations share these conventions:
+
+* :class:`MessagePlan` — per-round tuples of :class:`Message` objects,
+  the original per-message form every transport accepts.
+* :class:`ArrayMessagePlan` — the same iteration as flat ``src`` /
+  ``dst`` / ``nbytes`` numpy arrays with CSR-style ``round_ptr``
+  boundaries, built *directly* by vectorized planners
+  (:func:`build_array_plan`) without ever materializing Python message
+  objects. Conversion between the two is lossless and order-preserving
+  (``from_plan`` / ``to_plan``), and the vectorized builders emit
+  messages in exactly the per-round order of the list planners — the
+  invariant that makes the batched simulator
+  (``runtime/vector_network.py``) byte-exact *and* time-equal against
+  the heap-ordered :class:`~repro_torch.runtime.network.NetworkSim`.
+
+A copy of the JAX package's ``repro/core/transport.py`` (numpy) with its imports
+rewritten; tests hold it equal to the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -70,8 +82,9 @@ class MessagePlan:
     n_nodes: int                                 # peers + infrastructure
     rounds: Tuple[Tuple[Message, ...], ...]
     # MKD prefix: the first ``kd_rounds`` entries of ``rounds`` are
-    # distillation traffic (teacher pulls + logit exchanges); transports
-    # split their bytes back out into ``Transcript.kd_bytes``
+    # distillation traffic (teacher pulls + logit exchanges) prepended
+    # by :func:`with_mkd_traffic`; transports split their bytes back
+    # out into ``Transcript.kd_bytes`` for per-source accounting
     kd_rounds: int = 0
 
     @property
@@ -315,3 +328,436 @@ def build_message_plan(technique: str, plan: GridPlan,
     if technique == "gossip":
         return gossip_plan(plan, mask, model_bytes, num_rounds)
     return _PLANNERS[technique](plan, mask, model_bytes)
+
+
+# ---------------------------------------------------------------------------
+# array-form plans (the large-N hot path)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ArrayMessagePlan:
+    """One FL iteration's traffic as flat per-message arrays.
+
+    ``src`` / ``dst`` / ``nbytes`` concatenate every round's messages
+    in round order; ``round_ptr`` (length ``n_rounds + 1``) holds the
+    CSR boundaries, so round ``r`` is the slice
+    ``round_ptr[r]:round_ptr[r+1]``. Message order *within* each round
+    is exactly the list planners' emission order — per-sender uplink
+    serialization and seeded loss draws depend on it, so preserving it
+    is what keeps the vectorized simulator time-equal and
+    drop-identical to the heap engine.
+    """
+
+    technique: str
+    n_peers: int
+    n_nodes: int
+    src: np.ndarray                     # int64 [n_messages]
+    dst: np.ndarray                     # int64 [n_messages]
+    nbytes: np.ndarray                  # float64 [n_messages]
+    round_ptr: np.ndarray               # int64 [n_rounds + 1]
+    kd_rounds: int = 0
+
+    @property
+    def n_rounds(self) -> int:
+        return len(self.round_ptr) - 1
+
+    @property
+    def n_messages(self) -> int:
+        return int(self.src.size)
+
+    @property
+    def total_bytes(self) -> float:
+        return float(self.nbytes.sum())
+
+    def round_arrays(self, r: int) -> Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+        lo, hi = int(self.round_ptr[r]), int(self.round_ptr[r + 1])
+        return self.src[lo:hi], self.dst[lo:hi], self.nbytes[lo:hi]
+
+    # -- lossless conversion -------------------------------------------
+    @classmethod
+    def from_plan(cls, mplan: MessagePlan) -> "ArrayMessagePlan":
+        counts = [len(r) for r in mplan.rounds]
+        ptr = np.zeros(len(counts) + 1, np.int64)
+        np.cumsum(counts, out=ptr[1:])
+        n = int(ptr[-1])
+        src = np.empty(n, np.int64)
+        dst = np.empty(n, np.int64)
+        nb = np.empty(n, np.float64)
+        i = 0
+        for r in mplan.rounds:
+            for m in r:
+                src[i], dst[i], nb[i] = m.src, m.dst, m.nbytes
+                i += 1
+        return cls(mplan.technique, mplan.n_peers, mplan.n_nodes,
+                   src, dst, nb, ptr, kd_rounds=mplan.kd_rounds)
+
+    def to_plan(self) -> MessagePlan:
+        rounds = tuple(
+            tuple(Message(int(s), int(d), float(b))
+                  for s, d, b in zip(*self.round_arrays(r)))
+            for r in range(self.n_rounds))
+        return MessagePlan(self.technique, self.n_peers, self.n_nodes,
+                           rounds, kd_rounds=self.kd_rounds)
+
+
+def _concat_rounds(technique: str, n_peers: int, n_nodes: int,
+                   rounds: List[Tuple[np.ndarray, np.ndarray,
+                                      np.ndarray]],
+                   kd_rounds: int = 0) -> ArrayMessagePlan:
+    counts = [r[0].size for r in rounds]
+    ptr = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    if rounds:
+        src = np.concatenate([r[0] for r in rounds])
+        dst = np.concatenate([r[1] for r in rounds])
+        nb = np.concatenate([r[2] for r in rounds])
+    else:
+        src = np.empty(0, np.int64)
+        dst = np.empty(0, np.int64)
+        nb = np.empty(0, np.float64)
+    return ArrayMessagePlan(technique, n_peers, n_nodes,
+                            src.astype(np.int64), dst.astype(np.int64),
+                            nb.astype(np.float64), ptr,
+                            kd_rounds=kd_rounds)
+
+
+def _group_rows(plan: GridPlan, rnd: int) -> np.ndarray:
+    """[n_groups, m] peer ids of round ``rnd``'s groups, rows in
+    ``groups_for_round`` order, members in within-group order."""
+    peers = np.arange(plan.capacity)
+    keys = plan.group_key(peers, rnd)
+    order = np.argsort(keys, kind="stable")
+    return order.reshape(-1, plan.dims[rnd])
+
+
+def _valid_slots(plan: GridPlan, active: np.ndarray) -> np.ndarray:
+    """Boolean over grid slots: real peer and active under the mask."""
+    valid = np.zeros(plan.capacity, bool)
+    valid[active] = True
+    return valid
+
+
+def _mar_round_arrays(rows: np.ndarray, vrows: np.ndarray,
+                      model_bytes: float
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """All active intra-group pairs of one MAR round, flattened
+    group-major then sender-major — the list planner's order."""
+    g, m = rows.shape
+    pair_ok = vrows[:, :, None] & vrows[:, None, :]
+    pair_ok &= ~np.eye(m, dtype=bool)[None]
+    src = np.broadcast_to(rows[:, :, None], (g, m, m))[pair_ok]
+    dst = np.broadcast_to(rows[:, None, :], (g, m, m))[pair_ok]
+    return (src, dst, np.full(src.size, float(model_bytes)))
+
+
+def mar_plan_arrays(plan: GridPlan, mask: Optional[np.ndarray],
+                    model_bytes: float,
+                    num_rounds: Optional[int] = None) -> ArrayMessagePlan:
+    """Vectorized :func:`mar_plan` (``naive`` mode) — identical message
+    order without materializing ``Message`` objects."""
+    rounds = plan.depth if num_rounds is None else num_rounds
+    active = _active_ids(mask, plan.n_peers)
+    valid = _valid_slots(plan, active)
+    out = []
+    for g in range(rounds):
+        rows = _group_rows(plan, g % plan.depth)
+        out.append(_mar_round_arrays(rows, valid[rows], model_bytes))
+    return _concat_rounds("mar", plan.n_peers, plan.n_peers, out)
+
+
+def fedavg_plan_arrays(plan: GridPlan, mask: Optional[np.ndarray],
+                       model_bytes: float) -> ArrayMessagePlan:
+    n = plan.n_peers
+    active = _active_ids(mask, n).astype(np.int64)
+    server = np.full(active.size, n, np.int64)
+    nb = np.full(active.size, float(model_bytes))
+    return _concat_rounds("fedavg", n, n + 1,
+                          [(active, server, nb), (server, active, nb)])
+
+
+def ar_plan_arrays(plan: GridPlan, mask: Optional[np.ndarray],
+                   model_bytes: float) -> ArrayMessagePlan:
+    n = plan.n_peers
+    active = _active_ids(mask, n).astype(np.int64)
+    k = active.size
+    off_diag = ~np.eye(k, dtype=bool)
+    src = np.broadcast_to(active[:, None], (k, k))[off_diag]
+    dst = np.broadcast_to(active[None, :], (k, k))[off_diag]
+    return _concat_rounds(
+        "ar", n, n, [(src, dst, np.full(src.size, float(model_bytes)))])
+
+
+def rdfl_plan_arrays(plan: GridPlan, mask: Optional[np.ndarray],
+                     model_bytes: float) -> ArrayMessagePlan:
+    n = plan.n_peers
+    active = _active_ids(mask, n).astype(np.int64)
+    k = active.size
+    if k < 2:
+        return _concat_rounds("rdfl", n, n, [])
+    dst = np.roll(active, -1)
+    nb = np.full(k, float(model_bytes))
+    return _concat_rounds("rdfl", n, n,
+                          [(active, dst, nb)] * (k - 1))
+
+
+def gossip_plan_arrays(plan: GridPlan, mask: Optional[np.ndarray],
+                       model_bytes: float,
+                       num_rounds: Optional[int] = None
+                       ) -> ArrayMessagePlan:
+    n = plan.n_peers
+    if num_rounds is None:
+        num_rounds = max(1, int(math.ceil(math.log2(max(n, 2)))))
+    active = _active_ids(mask, n).astype(np.int64)
+    nb = np.full(active.size, float(model_bytes))
+    out = [(active, (active + (1 << r)) % n, nb)
+           for r in range(num_rounds)]
+    return _concat_rounds("gossip", n, n, out)
+
+
+def _leaf_groups(plan: GridPlan, active: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(rows, vrows, leaders) of the last-round groups: member matrix,
+    validity, and each group's first active member (leaders only
+    meaningful where a group has any active member)."""
+    rows = _group_rows(plan, plan.depth - 1)
+    vrows = _valid_slots(plan, active)[rows]
+    first_pos = np.argmax(vrows, axis=1)
+    leaders = rows[np.arange(rows.shape[0]), first_pos]
+    return rows, vrows, leaders
+
+
+def hierarchical_plan_arrays(plan: GridPlan, mask: Optional[np.ndarray],
+                             model_bytes: float) -> ArrayMessagePlan:
+    n = plan.n_peers
+    rendezvous = n
+    active = _active_ids(mask, n)
+    rows, vrows, leaders = _leaf_groups(plan, active)
+    nonempty = vrows.any(axis=1)
+    # member-matrix flattening is group-major then member-major — the
+    # list planner's nested-loop order; empty groups drop out of the
+    # boolean mask naturally
+    members = rows[vrows]
+    member_lead = np.broadcast_to(leaders[:, None], rows.shape)[vrows]
+    glead = leaders[nonempty]
+    nb_m = np.full(members.size, float(model_bytes))
+    nb_g = np.full(glead.size, float(model_bytes))
+    rv = np.full(glead.size, rendezvous, np.int64)
+    return _concat_rounds(
+        "hierarchical", n, n + 1,
+        [(members, member_lead, nb_m), (glead, rv, nb_g),
+         (rv, glead, nb_g), (member_lead, members, nb_m)])
+
+
+def mkd_round_arrays(plan: GridPlan, mask: Optional[np.ndarray],
+                     model_bytes: float, kd_logit_bytes: float,
+                     num_rounds: Optional[int] = None
+                     ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Vectorized :func:`mkd_message_rounds`: per group, the teacher
+    pulls (all active pairs at half state) then the logit messages
+    (first active mate -> student, loopback for singleton groups),
+    blocks interleaved per group exactly like the list builder."""
+    rounds = plan.depth if num_rounds is None else num_rounds
+    half = model_bytes // 2
+    active = _active_ids(mask, plan.n_peers)
+    valid = _valid_slots(plan, active)
+    out = []
+    for g in range(rounds):
+        rows = _group_rows(plan, g % plan.depth)
+        vrows = valid[rows]
+        ng, m = rows.shape
+        p_src, p_dst, _ = _mar_round_arrays(rows, vrows, half)
+        k = vrows.sum(axis=1)                      # active per group
+        # logit messages: student s <- its group's first active member
+        # (second if s *is* the first; itself when alone)
+        first_pos = np.argmax(vrows, axis=1)
+        first = rows[np.arange(ng), first_pos]
+        v2 = vrows.copy()
+        v2[np.arange(ng), first_pos] = False
+        second_pos = np.argmax(v2, axis=1)
+        second = rows[np.arange(ng), second_pos]
+        students = rows[vrows]
+        gid_l = np.broadcast_to(np.arange(ng)[:, None], rows.shape)[vrows]
+        mate = np.where(students == first[gid_l], second[gid_l],
+                        first[gid_l])
+        mate = np.where(k[gid_l] < 2, students, mate)
+        # interleave per group: [pulls_g, logits_g] blocks in group order
+        p_cnt = k * (k - 1)
+        tot = p_cnt + k
+        goff = np.zeros(ng + 1, np.int64)
+        np.cumsum(tot, out=goff[1:])
+        gid_p = np.broadcast_to(
+            np.arange(ng)[:, None, None], (ng, m, m))[
+                vrows[:, :, None] & vrows[:, None, :]
+                & ~np.eye(m, dtype=bool)[None]]
+        poff = np.zeros(ng + 1, np.int64)
+        np.cumsum(p_cnt, out=poff[1:])
+        idx_p = goff[gid_p] + (np.arange(p_src.size) - poff[gid_p])
+        loff = np.zeros(ng + 1, np.int64)
+        np.cumsum(k, out=loff[1:])
+        idx_l = goff[gid_l] + p_cnt[gid_l] + \
+            (np.arange(students.size) - loff[gid_l])
+        n_msg = int(tot.sum())
+        src = np.empty(n_msg, np.int64)
+        dst = np.empty(n_msg, np.int64)
+        nb = np.empty(n_msg, np.float64)
+        src[idx_p], dst[idx_p], nb[idx_p] = p_src, p_dst, float(half)
+        src[idx_l], dst[idx_l], nb[idx_l] = \
+            mate, students, float(kd_logit_bytes)
+        out.append((src, dst, nb))
+    return out
+
+
+def with_mkd_traffic_arrays(aplan: ArrayMessagePlan, plan: GridPlan,
+                            mask: Optional[np.ndarray],
+                            model_bytes: float, kd_logit_bytes: float,
+                            num_rounds: Optional[int] = None
+                            ) -> ArrayMessagePlan:
+    """Array-form :func:`with_mkd_traffic`: prepend the MKD rounds."""
+    kd = mkd_round_arrays(plan, mask, model_bytes, kd_logit_bytes,
+                          num_rounds=num_rounds)
+    agg = [aplan.round_arrays(r) for r in range(aplan.n_rounds)]
+    return _concat_rounds(aplan.technique, aplan.n_peers, aplan.n_nodes,
+                          kd + agg, kd_rounds=len(kd))
+
+
+_ARRAY_PLANNERS = {
+    "mar": mar_plan_arrays,
+    "fedavg": fedavg_plan_arrays,
+    "ar": ar_plan_arrays,
+    "rdfl": rdfl_plan_arrays,
+    "gossip": gossip_plan_arrays,
+    "hierarchical": hierarchical_plan_arrays,
+}
+
+
+def build_array_plan(technique: str, plan: GridPlan,
+                     mask: Optional[np.ndarray], model_bytes: float,
+                     num_rounds: Optional[int] = None,
+                     mode: str = "naive") -> ArrayMessagePlan:
+    """Array-native :func:`build_message_plan` — same messages, same
+    order, no per-message Python objects. ``mar`` ``butterfly`` mode
+    falls back to converting the list plan (its variable-length chunk
+    hops aren't on the large-N hot path)."""
+    if technique not in _ARRAY_PLANNERS:
+        raise ValueError(
+            f"no array message planner for technique {technique!r}; "
+            f"known: {sorted(_ARRAY_PLANNERS)}")
+    if technique == "mar":
+        if mode != "naive":
+            return ArrayMessagePlan.from_plan(
+                mar_plan(plan, mask, model_bytes, num_rounds, mode))
+        return mar_plan_arrays(plan, mask, model_bytes, num_rounds)
+    if technique == "gossip":
+        return gossip_plan_arrays(plan, mask, model_bytes, num_rounds)
+    return _ARRAY_PLANNERS[technique](plan, mask, model_bytes)
+
+
+# ---------------------------------------------------------------------------
+# symbolic superpeer plans (the N=10^6 tier)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SuperMessagePlan:
+    """One FL iteration's traffic as a *recipe*, not messages.
+
+    Where :class:`ArrayMessagePlan` materializes every ``(src, dst,
+    nbytes)`` tuple, this plan stores only what generated them — the
+    technique, the grid (with placement), the active mask and the byte
+    sizes — O(N) state independent of message count. The superpeer
+    engine (``runtime/super_network.py``) walks the same per-technique
+    round structure the array planners would emit, timing structured
+    rounds with the closed-form recurrences of
+    ``runtime/vector_network.py`` and materializing only the rounds
+    that need the full vector path (pairwise WAN terms, loss). Because
+    the recipe *determines* the array plan, :meth:`to_array_plan`
+    rebuilds the exact messages on demand — the engine's fallback, and
+    the parity tests' oracle.
+
+    ``use_kd`` prepends the MKD prefix rounds at ``raw_model_bytes``
+    (distillation rides uncompressed state, as
+    ``AggregationPipeline.message_plan`` bills it) with
+    ``kd_logit_bytes`` logits.
+    """
+
+    technique: str
+    plan: GridPlan
+    model_bytes: float                   # wire bytes per agg message
+    mask: Optional[np.ndarray] = None
+    num_rounds: Optional[int] = None
+    mode: str = "naive"
+    use_kd: bool = False
+    raw_model_bytes: float = 0.0
+    kd_logit_bytes: float = 0.0
+
+    @property
+    def n_peers(self) -> int:
+        return self.plan.n_peers
+
+    @property
+    def n_nodes(self) -> int:
+        return self.plan.n_peers + (
+            1 if self.technique in ("fedavg", "hierarchical") else 0)
+
+    @property
+    def kd_rounds(self) -> int:
+        if not self.use_kd:
+            return 0
+        return (self.plan.depth if self.num_rounds is None
+                else self.num_rounds)
+
+    def n_messages_estimate(self) -> int:
+        """Upper-ish bound on materialized message count — the
+        engine's per-link-tracking budget check."""
+        n = self.plan.n_peers
+        k = _active_ids(self.mask, n).size
+        depth = self.plan.depth
+        rounds = depth if self.num_rounds is None else self.num_rounds
+        m = max(self.plan.dims)
+        est = {
+            "mar": rounds * k * (m - 1),
+            "gossip": rounds * k,
+            "fedavg": 2 * k,
+            "hierarchical": 2 * k + 2 * (k // max(
+                self.plan.dims[-1], 1) + 1),
+            "ar": k * (k - 1),
+            "rdfl": k * (k - 1),
+        }.get(self.technique, k * rounds)
+        if self.use_kd:
+            est += self.kd_rounds * k * m
+        return int(est)
+
+    def to_array_plan(self) -> ArrayMessagePlan:
+        """Materialize the exact messages this recipe stands for."""
+        aplan = build_array_plan(self.technique, self.plan, self.mask,
+                                 self.model_bytes,
+                                 num_rounds=self.num_rounds,
+                                 mode=self.mode)
+        if self.use_kd:
+            aplan = with_mkd_traffic_arrays(
+                aplan, self.plan, self.mask, self.raw_model_bytes,
+                self.kd_logit_bytes, num_rounds=self.num_rounds)
+        return aplan
+
+
+def build_super_plan(technique: str, plan: GridPlan,
+                     mask: Optional[np.ndarray], model_bytes: float,
+                     num_rounds: Optional[int] = None,
+                     mode: str = "naive",
+                     use_kd: bool = False,
+                     raw_model_bytes: float = 0.0,
+                     kd_logit_bytes: float = 0.0) -> SuperMessagePlan:
+    """Symbolic counterpart of :func:`build_array_plan` — validates the
+    technique and freezes the recipe; no messages are materialized."""
+    if technique not in _ARRAY_PLANNERS:
+        raise ValueError(
+            f"no superpeer plan recipe for technique {technique!r}; "
+            f"known: {sorted(_ARRAY_PLANNERS)}")
+    if mask is not None:
+        mask = np.asarray(mask).copy()
+        mask.setflags(write=False)
+    return SuperMessagePlan(technique, plan, float(model_bytes),
+                            mask=mask, num_rounds=num_rounds, mode=mode,
+                            use_kd=use_kd,
+                            raw_model_bytes=float(raw_model_bytes),
+                            kd_logit_bytes=float(kd_logit_bytes))

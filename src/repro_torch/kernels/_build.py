@@ -101,7 +101,7 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
-def refuse_autograd(kernel: str, tensors, note: str = "") -> None:
+def refuse_autograd(kernel: str, tensors) -> None:
     """Raise ``NotImplementedError`` when autograd would record a call of
     a forward-only kernel: its output, written through ``ctypes`` into a
     fresh tensor, has no ``grad_fn``, so every input upstream would lose
@@ -112,4 +112,4 @@ def refuse_autograd(kernel: str, tensors, note: str = "") -> None:
             for t in tensors):
         raise NotImplementedError(
             f"the {kernel} kernel is forward-only: it has no backward, so "
-            f"it cannot run on inputs that require grad{note}")
+            f"it cannot run on inputs that require grad")

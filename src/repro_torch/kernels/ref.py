@@ -3,12 +3,14 @@
 Each function is the semantic ground truth at f32 precision with no
 blocking. The kernel wrappers call these for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card. Port of
-the matching functions in the JAX package's ``repro/kernels/ref.py``.
+the matching functions in the JAX package's ``repro/kernels/ref.py``,
+plus the chunked scan of its ``repro/models/ssm.py`` and that scan's
+VJP, :func:`ssd_scan_bwd`, the backward of the SSD-scan kernel.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -135,3 +137,81 @@ def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not ys:
         return v.clone(), h
     return torch.stack(ys, dim=2).to(v.dtype), h
+
+
+def chunked_linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        log_a: torch.Tensor, h0: torch.Tensor,
+                        chunk: int = 256
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q,k: [b, nh, S, dk]; v: [b, nh, S, dv]; log_a: [b, nh, S] (<= 0).
+
+    The plain chunked form (intra-chunk products, a loop over chunks),
+    the port of the JAX package's ``repro/models/ssm.py``
+    ``chunked_linear_scan``: the XLA route of the recurrent blocks and
+    the function whose VJP the reference trains through.
+    Returns (y [b, nh, S, dv] in v's dtype, h_final [b, nh, dk, dv] f32).
+    """
+    b, nh, s, dk = q.shape
+    dv = v.shape[-1]
+    if s % chunk != 0:
+        chunk = s  # smoke shapes
+    nchunks = s // chunk
+    qc = q.reshape(b, nh, nchunks, chunk, dk)
+    kc = k.reshape(b, nh, nchunks, chunk, dk)
+    vc = v.reshape(b, nh, nchunks, chunk, dv)
+    ac = log_a.reshape(b, nh, nchunks, chunk).float()
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=q.device).tril()
+
+    h = h0.float()
+    ys = []
+    for c in range(nchunks):
+        qi, ki, vi = qc[:, :, c].float(), kc[:, :, c].float(), \
+            vc[:, :, c].float()
+        cum = ac[:, :, c].cumsum(dim=-1)              # A_i = sum_{j<=i} a_j
+        total = cum[..., -1]                          # [b, nh]
+        # intra-chunk: S_ij = (q_i.k_j) exp(A_i - A_j), j <= i
+        qk = torch.einsum("bhid,bhjd->bhij", qi, ki)
+        decay = cum[..., :, None] - cum[..., None, :]
+        gate = torch.where(causal, torch.exp(torch.clamp(decay, max=0.0)),
+                           0.0)
+        y_intra = torch.einsum("bhij,bhjv->bhiv", qk * gate, vi)
+        # inter-chunk: y_i += exp(A_i) q_i . H0
+        y_inter = torch.einsum("bhid,bhdv->bhiv", qi, h) \
+            * torch.exp(cum)[..., None]
+        # state update: H' = exp(A_total) H0 + sum_j exp(A_total - A_j) k_j v_j
+        w = torch.exp(total[..., None] - cum)         # [b, nh, chunk]
+        h = h * torch.exp(total)[..., None, None] + torch.einsum(
+            "bhjd,bhjv->bhdv", ki * w[..., None], vi)
+        ys.append((y_intra + y_inter).to(v.dtype))
+    if not ys:
+        return v.clone(), h
+    return torch.stack(ys, dim=2).reshape(b, nh, s, dv), h
+
+
+def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_a: torch.Tensor, h0: torch.Tensor,
+                 dy: Optional[torch.Tensor], dh_final: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The SSD scan's backward: (dq, dk, dv, dlog_a, dh0) for the
+    cotangents ``dy`` of y and ``dh_final`` of h_final (either may be
+    None, a zero cotangent).
+
+    The JAX package's Pallas scan has no backward: its training gradient
+    is the VJP of the jnp ``chunked_linear_scan``. This is that VJP:
+    :func:`chunked_linear_scan` recomputed on detached inputs under
+    ``torch.enable_grad()`` and differentiated by ``torch.autograd.grad``
+    (f32 inside, each gradient in its input's dtype and shape; an input
+    broadcast at stride 0 gets the full per-position gradient, which the
+    broadcast's own backward sums)."""
+    xs = [x.detach().requires_grad_() for x in (q, k, v, log_a, h0)]
+    with torch.enable_grad():
+        y, h = chunked_linear_scan(*xs)
+        pairs = [(o, g) for o, g in ((y, dy), (h, dh_final))
+                 if g is not None]
+        if not pairs:
+            return tuple(torch.zeros_like(x) for x in xs)
+        outs, cots = zip(*pairs)
+        grads = torch.autograd.grad(outs, xs, cots, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, xs))

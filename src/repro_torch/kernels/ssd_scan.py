@@ -32,9 +32,14 @@ never copied; only a tensor whose last axis is not contiguous is.
 config's scan inputs pass it.
 
 :func:`ssd_scan_fwd` dispatches on where the tensors lie: CPU tensors go
-to the plain :func:`~repro_torch.kernels.ref.ssd_scan_ref`; CUDA tensors
-launch the kernel or raise — there is no fallback. ``launches`` counts
-the kernel launches.
+to the plain :func:`~repro_torch.kernels.ref.ssd_scan_ref`, which
+autograd differentiates; CUDA tensors go through :class:`_SsdScanFn`,
+whose forward launches the kernel or raises — there is no fallback —
+and whose backward is the plain
+:func:`~repro_torch.kernels.ref.ssd_scan_bwd`: the Pallas kernel has no
+backward either, and the reference trains through the VJP of its jnp
+``chunked_linear_scan``, which that function is. ``launches`` counts the
+kernel launches (a remat recompute launches the forward again).
 """
 from __future__ import annotations
 
@@ -42,12 +47,15 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.kernels.ref import ssd_scan_bwd, ssd_scan_ref
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: ``torch.profiler`` label of the plain backward; only a profiler reads it
+SPAN_BACKWARD = "ssd_scan.backward"
 
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 #: largest dk each entry takes
@@ -127,18 +135,11 @@ def validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_layout(q, k, v, log_a, h0)
 
 
-def ssd_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 log_a: torch.Tensor, h0: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q,k [b,nh,S,dk]; v [b,nh,S,dv]; log_a [b,nh,S]; h0 [b,nh,dk,dv]
-    -> (y [b,nh,S,dv] in v's dtype, h_final [b,nh,dk,dv] f32)."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            log_a: torch.Tensor, h0: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Validate and launch the kernel once."""
     global launches
-    if q.device.type == "cpu":
-        return ssd_scan_ref(q, k, v, log_a, h0)
-    _build.refuse_autograd(
-        "ssd_scan", (q, k, v, log_a, h0),
-        "; training the ssm and hybrid families on the card needs its "
-        "backward (ROADMAP.md, Queue 1 item 19)")
     log_a, h0 = log_a.float(), h0.float().contiguous()
     q, k, v = (_unit_last(x) for x in (q, k, v))
     validate(q, k, v, log_a, h0)
@@ -162,3 +163,30 @@ def ssd_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{q.dtype}")
     launches += 1
     return y, h_out
+
+
+class _SsdScanFn(torch.autograd.Function):
+    """The kernel's forward with the plain backward: the inputs are saved
+    as given (Mamba2's stride-0 B and C stay views) and the backward
+    recomputes the chunked scan in f32 and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_a, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, log_a, h0)
+        return _launch(q, k, v, log_a, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        with record_function(SPAN_BACKWARD):
+            return ssd_scan_bwd(*ctx.saved_tensors, dy, dh_final)
+
+
+def ssd_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_a: torch.Tensor, h0: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q,k [b,nh,S,dk]; v [b,nh,S,dv]; log_a [b,nh,S]; h0 [b,nh,dk,dv]
+    -> (y [b,nh,S,dv] in v's dtype, h_final [b,nh,dk,dv] f32)."""
+    if q.device.type == "cpu":
+        return ssd_scan_ref(q, k, v, log_a, h0)
+    return _SsdScanFn.apply(q, k, v, log_a, h0)

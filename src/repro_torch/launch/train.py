@@ -14,7 +14,13 @@ sweep masks peers that stop heartbeating. ``--link-profile`` (or
 messages and times them over modeled links; the ledger and the
 per-step communication seconds then come from the transcript, and lost
 sends (``--link-loss``) demote their peer to receiver-only for that
-step.
+step. ``--transport vector_sim`` and ``super_sim`` are the large-N
+engines, with the same transcripts. ``--adaptive-m`` (a group-size
+controller, exact grids only) and ``--placement`` (a topology-aware
+peer-to-slot policy, which probes the links through the live transport
+and bills the probes as ``placement_probe``) watch each step's
+transcript and regroup the grid in place: the pipeline re-binds and the
+train step is rebuilt, the state untouched.
 
 Permanent membership changes (``--resize-at``, trace join/leave events)
 route through :class:`~repro_torch.core.replan.MembershipChange`:
@@ -24,13 +30,12 @@ whole planned schedule is validated at launch (every target peer count
 must have an exact grid).
 
 The run is on CUDA (raising where there is none) unless ``--device``
-names another device. On the card the ssm and hybrid families refuse
-to train: their scan kernel is forward-only (ROADMAP.md, Queue 1 item
-19); on the CPU they train through the plain scan. The flags of the
-reference's unported pieces raise ``NotImplementedError`` naming their
-ROADMAP.md item: ``--adaptive-m``, ``--placement`` and the
-``vector_sim`` and ``super_sim`` transports (item 13), the ``socket``
-transport, ``--peer-hosts`` and ``--rank`` (item 14).
+names another device. Every family trains on the card: the ssm and
+hybrid families' scans launch the SSD-scan kernel forward and take the
+plain chunked scan's VJP backward, as the reference does. The flags of
+the reference's unported pieces raise ``NotImplementedError`` naming
+their ROADMAP.md item: the ``socket`` transport, ``--peer-hosts`` and
+``--rank`` (item 14).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
@@ -39,8 +44,13 @@ Examples:
       --smoke --steps 10 --peers 4 --device cpu --churn sessions
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
       --smoke --steps 8 --peers 16 --device cpu --resize-at 4:9
+  PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
+      --smoke --steps 8 --peers 27 --device cpu --link-profile wireless \\
+      --transport vector_sim --adaptive-m tail_aware
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch musicgen-medium --peers 4 --steps 6     # full width, GPU
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch zamba2-2.7b --peers 4 --steps 6         # full width, GPU
 """
 from __future__ import annotations
 
@@ -55,10 +65,13 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.registry import ARCH_IDS, get_config, \
     get_smoke_config
 from repro_torch.core import topology
+from repro_torch.core.adaptive import (CONTROLLERS, build_controller,
+                                      observe_regroups)
 from repro_torch.core.aggregation import CommLedger, build_pipeline
 from repro_torch.core.fl_device import (apply_membership, init_fl_state,
                                         make_fl_train_step)
-from repro_torch.core.moshpit import plan_grid
+from repro_torch.core.moshpit import GridPlan, plan_grid
+from repro_torch.core.placement import PLACEMENTS, build_placement
 from repro_torch.core.replan import (plan_membership_change,
                                      validate_membership_schedule)
 from repro_torch.data.synthetic import lm_token_stream
@@ -70,10 +83,6 @@ from repro_torch.runtime.transport_base import UNPORTED_TRANSPORTS
 
 #: the reference's flags whose pieces are not ported, with their item
 UNPORTED_FLAGS = {
-    "adaptive_m": "--adaptive-m (core/adaptive.py): ROADMAP.md, Queue 1 "
-                  "item 13",
-    "placement": "--placement (core/placement.py): ROADMAP.md, Queue 1 "
-                 "item 13",
     "peer_hosts": "--peer-hosts (runtime/socket_transport.py): ROADMAP.md, "
                   "Queue 1 item 14",
     "rank": "--rank (runtime/socket_transport.py): ROADMAP.md, Queue 1 "
@@ -112,15 +121,29 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--churn-trace", default=None,
                     help="membership trace file for --churn trace")
     ap.add_argument("--adaptive-m", default=None,
-                    help="adaptive group sizing: not ported (ROADMAP.md, "
-                         "Queue 1 item 13)")
+                    help="adaptive group sizing (core/adaptive.py): a "
+                         "GroupSizeController name (static | "
+                         "tail_aware | schedule) consuming each step's "
+                         "transport transcript; proposals regroup the "
+                         "MAR grid in place (exact factorizations "
+                         "only — the device backend needs capacity == "
+                         "N). Requires a transport (--transport / "
+                         "--link-profile) for the transcript signal")
     ap.add_argument("--placement", default=None,
-                    help="topology-aware grid placement: not ported "
-                         "(ROADMAP.md, Queue 1 item 13)")
+                    help="topology-aware grid placement "
+                         "(core/placement.py): a PlacementPolicy name "
+                         "(identity | random | clustered). 'clustered' "
+                         "learns network regions from link evidence "
+                         "(probe rounds through the live transport) "
+                         "and regroups the grid so each region fills "
+                         "contiguous coordinates. Composes with "
+                         "--adaptive-m. Requires a transport "
+                         "(--transport / --link-profile)")
     ap.add_argument("--link-shuffle", action="store_true",
                     help="scatter the regions profile's region "
                          "assignment over peer indices (peers joined "
-                         "in arbitrary order)")
+                         "in arbitrary order) — the misaligned layout "
+                         "--placement clustered exists to fix")
     ap.add_argument("--health-timeout", type=float, default=30.0,
                     help="iterations without a heartbeat before a peer "
                          "is marked dead")
@@ -135,12 +158,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--transport", default=None,
                     help="MessagePlan executor backend "
                          "(runtime/transport_base.py): 'sim' models "
-                         "messages over --link-profile links (the "
-                         "reference's vector_sim, super_sim and socket "
-                         "are not ported: ROADMAP.md, Queue 1 items 13 "
-                         "and 14). Default: 'sim' when --link-profile "
-                         "is given, else no transport (analytic "
-                         "accounting)")
+                         "messages over --link-profile links; "
+                         "'vector_sim' is the batched segment-op "
+                         "engine with identical transcripts (use for "
+                         "large --peers); 'super_sim' adds closed-"
+                         "form intra-cluster tiers on top (identical "
+                         "transcripts on uniform/wireless). The "
+                         "reference's socket is not ported (ROADMAP.md, "
+                         "Queue 1 item 14). Default: 'sim' when "
+                         "--link-profile is given, else no transport "
+                         "(analytic accounting)")
     ap.add_argument("--link-profile", default=None,
                     choices=["uniform", "wireless", "regions"],
                     help="discrete-event link model for the sim "
@@ -183,6 +210,27 @@ def _check_ported(ap: argparse.ArgumentParser, args) -> None:
         if args.transport not in names:
             ap.error(f"--transport must be one of {names}, "
                      f"got {args.transport!r}")
+
+
+def _regroup(t: int, transcript, grid: GridPlan, pipeline, step_fn,
+             model: Model, lr: float, controller, placement_policy):
+    """The controllers' same-N regroups after step ``t``
+    (``core/adaptive.observe_regroups``): each re-binds the pipeline and
+    rebuilds the train step; the state is untouched (the peer axis does
+    not change). Returns the (grid, pipeline, step_fn) in force for the
+    next step."""
+    for new_grid, log, entry in observe_regroups(
+            t, transcript, grid, controller, placement_policy):
+        if log == "regroup":
+            print(f"[train] adaptive-M regroup at step {t+1}: "
+                  f"{grid.dims} -> {new_grid.dims}")
+        else:
+            print(f"[train] placement regroup at step {t+1}: "
+                  f"{entry[1]}/{grid.n_peers} peers moved")
+        grid = new_grid
+        pipeline = pipeline.with_plan(grid)
+        step_fn = make_fl_train_step(model, grid, lr=lr, pipeline=pipeline)
+    return grid, pipeline, step_fn
 
 
 def main(argv=None, on_step: Optional[StepHook] = None) -> int:
@@ -278,6 +326,37 @@ def main(argv=None, on_step: Optional[StepHook] = None) -> int:
         print("[train] elastic schedule: " + ", ".join(
             f"step {ts}: -> {n} peers" for ts, n in planned))
 
+    controller = None
+    if args.adaptive_m is not None:
+        if args.adaptive_m not in CONTROLLERS:
+            ap.error(f"--adaptive-m must be one of "
+                     f"{sorted(CONTROLLERS)}, got {args.adaptive_m!r}")
+        if network is None:
+            ap.error("--adaptive-m needs a transcript signal: pass "
+                     "--link-profile (sim) or --transport")
+        controller = build_controller(args.adaptive_m, grid,
+                                      exact_only=True)
+
+    placement_policy = None
+    if args.placement is not None:
+        if args.placement not in PLACEMENTS:
+            ap.error(f"--placement must be one of "
+                     f"{sorted(PLACEMENTS)}, got {args.placement!r}")
+        if network is None:
+            ap.error("--placement needs a transport for link evidence "
+                     "and probe rounds: pass --link-profile (sim) or "
+                     "--transport")
+
+        def run_probe(mplan):
+            tr = network.run(mplan)
+            ledger.record("placement_probe", tr.total_bytes)
+            ledger.record_time(tr.iteration_s)
+            return tr
+
+        placement_policy = build_placement(args.placement, grid,
+                                           seed=args.seed)
+        placement_policy.bind_prober(run_probe)
+
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
     for t in range(start, start + args.steps):
@@ -302,6 +381,10 @@ def main(argv=None, on_step: Optional[StepHook] = None) -> int:
                 seed=args.seed + t)
             if network is not None:
                 network.resize(n_peers)
+            if controller is not None:
+                controller.rebind(grid)
+            if placement_policy is not None:
+                placement_policy.rebind(grid)
         raw = next(stream)
         batch = {
             k: v.reshape(n_peers, args.local_steps, 1, args.batch,
@@ -338,6 +421,9 @@ def main(argv=None, on_step: Optional[StepHook] = None) -> int:
             # the lifecycle's deadline policy next iteration
             lifecycle.observe_durations(
                 t, dt + transcript.peer_finish_s, mask=u)
+            grid, pipeline, step_fn = _regroup(
+                t, transcript, grid, pipeline, step_fn, model, args.lr,
+                controller, placement_policy)
         else:
             pipeline.record_iteration(ledger, int(a.sum()),
                                       peer_model_bytes)

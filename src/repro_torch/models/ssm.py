@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import chunked_linear_scan  # noqa: F401
 from repro_torch.models.layers import dense_init, torch_dtype
 
 Tensor = torch.Tensor
@@ -47,52 +48,6 @@ Carry = Tuple[Tensor, Tensor, Tensor, Tensor]
 # ---------------------------------------------------------------------------
 # Gated linear recurrence (shared by Mamba2 / mLSTM)
 # ---------------------------------------------------------------------------
-
-def chunked_linear_scan(q: Tensor, k: Tensor, v: Tensor, log_a: Tensor,
-                        h0: Tensor, chunk: int = 256
-                        ) -> Tuple[Tensor, Tensor]:
-    """q,k: [b, nh, S, dk]; v: [b, nh, S, dv]; log_a: [b, nh, S] (<= 0).
-
-    The plain chunked form (intra-chunk products, a loop over chunks).
-    Returns (y [b, nh, S, dv] in v's dtype, h_final [b, nh, dk, dv] f32).
-    """
-    b, nh, s, dk = q.shape
-    dv = v.shape[-1]
-    if s % chunk != 0:
-        chunk = s  # smoke shapes
-    nchunks = s // chunk
-    qc = q.reshape(b, nh, nchunks, chunk, dk)
-    kc = k.reshape(b, nh, nchunks, chunk, dk)
-    vc = v.reshape(b, nh, nchunks, chunk, dv)
-    ac = log_a.reshape(b, nh, nchunks, chunk).float()
-    causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=q.device).tril()
-
-    h = h0.float()
-    ys = []
-    for c in range(nchunks):
-        qi, ki, vi = qc[:, :, c].float(), kc[:, :, c].float(), \
-            vc[:, :, c].float()
-        cum = ac[:, :, c].cumsum(dim=-1)              # A_i = sum_{j<=i} a_j
-        total = cum[..., -1]                          # [b, nh]
-        # intra-chunk: S_ij = (q_i.k_j) exp(A_i - A_j), j <= i
-        qk = torch.einsum("bhid,bhjd->bhij", qi, ki)
-        decay = cum[..., :, None] - cum[..., None, :]
-        gate = torch.where(causal, torch.exp(torch.clamp(decay, max=0.0)),
-                           0.0)
-        y_intra = torch.einsum("bhij,bhjv->bhiv", qk * gate, vi)
-        # inter-chunk: y_i += exp(A_i) q_i . H0
-        y_inter = torch.einsum("bhid,bhdv->bhiv", qi, h) \
-            * torch.exp(cum)[..., None]
-        # state update: H' = exp(A_total) H0 + sum_j exp(A_total - A_j) k_j v_j
-        w = torch.exp(total[..., None] - cum)         # [b, nh, chunk]
-        h = h * torch.exp(total)[..., None, None] + torch.einsum(
-            "bhjd,bhjv->bhdv", ki * w[..., None], vi)
-        ys.append((y_intra + y_inter).to(v.dtype))
-    if not ys:
-        return v.clone(), h
-    return torch.stack(ys, dim=2).reshape(b, nh, s, dv), h
-
 
 def _scan(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor, log_a: Tensor,
           h0: Tensor) -> Tuple[Tensor, Tensor]:

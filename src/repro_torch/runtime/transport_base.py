@@ -24,8 +24,9 @@ new backends register with :func:`register_transport` and are built by
 name via :func:`build_transport`.
 
 A copy of the JAX package's ``repro/runtime/transport_base.py`` (numpy)
-with its imports rewritten. Only the ``"sim"`` backend is ported so
-far; the others are named in :data:`UNPORTED_TRANSPORTS`.
+with its imports rewritten. The ``"sim"``, ``"vector_sim"`` and
+``"super_sim"`` backends are ported; ``"socket"`` is named in
+:data:`UNPORTED_TRANSPORTS`.
 """
 from __future__ import annotations
 
@@ -418,8 +419,6 @@ class Transport:
 #: reference backends the port does not have yet, with the ROADMAP.md
 #: item that brings each one
 UNPORTED_TRANSPORTS = {
-    "vector_sim": "Queue 1 item 13 (the large-N engines)",
-    "super_sim": "Queue 1 item 13 (the large-N engines)",
     "socket": "Queue 1 item 14 (runtime/socket_transport.py)",
 }
 
@@ -427,12 +426,13 @@ UNPORTED_TRANSPORTS = {
 def available_transports() -> List[str]:
     """Sorted names of every registered transport backend.
 
-    Imports the bundled implementation first so the registry is
+    Imports the bundled implementations first so the registry is
     populated (the same lazy import :func:`build_transport` does).
     """
-    # importing the implementation registers it; lazy to avoid the
+    # importing the implementations registers them; lazy to avoid the
     # transport_base <-> network import cycle
-    from repro_torch.runtime import network  # noqa: F401
+    from repro_torch.runtime import (network, super_network,  # noqa: F401
+                                     vector_network)
     return sorted(TRANSPORTS)
 
 
@@ -442,9 +442,14 @@ def build_transport(name: str, n_peers: int, *,
                     **kwargs: Any) -> Transport:
     """Build a registered transport backend by name.
 
-    ``"sim"`` — the discrete-event simulator over modeled links. The
-    reference's other backends raise ``NotImplementedError`` naming the
-    ROADMAP.md item that ports them.
+    ``"sim"`` — the discrete-event simulator over modeled links;
+    ``"vector_sim"`` — the same link model timed with batched numpy
+    segment ops (the large-N engine, byte-exact and time-equal vs
+    ``"sim"``); ``"super_sim"`` — the superpeer hybrid engine (closed
+    forms for intra-cluster rounds, the vector engine for the rest;
+    byte-exact always, time-equal on per-peer link profiles). The
+    reference's ``"socket"`` raises ``NotImplementedError`` naming the
+    ROADMAP.md item that ports it.
     """
     if name in UNPORTED_TRANSPORTS:
         raise NotImplementedError(

@@ -197,14 +197,30 @@ def test_resize_survivors_bit_exact_joiners_mean(old, new):
         convert.params_to_numpy(state.params)))
 
 
-def test_same_n_change_raises_queue_item_13():
-    fed = Federation(FederationConfig(n_peers=16, task="text"), device="cpu")
-    state = fed.init_state()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        fed.regroup(state, GridPlan(16, (2, 2, 2, 2)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        fed.apply_membership(state, replan.regroup_change(
-            fed.plan, GridPlan(16, (2, 2, 2, 2))))
+def test_same_n_change_regroups_as_the_reference():
+    """A same-N change (the adaptive-M and placement hook) swaps the grid
+    in both packages alike: through ``regroup`` and through
+    ``apply_membership`` with a ``regroup_change`` (a placement-only
+    change included), peer state untouched, then steps equal to the
+    reference's; a change planned for another fleet still raises, and
+    a resize to the same N is a no-op."""
+    ref_fed, ref_state, fed, state = _pair("text", 16, False)
+    before = [x.copy() for x in
+              jax.tree.leaves(convert.params_to_numpy(state.params))]
+    state = fed.regroup(state, GridPlan(16, (4, 4)))
+    ref_state = ref_fed.regroup(ref_state, RefGridPlan(16, (4, 4)))
+    assert fed.plan.dims == ref_fed.plan.dims == (4, 4)
+    after = jax.tree.leaves(convert.params_to_numpy(state.params))
+    assert all(np.array_equal(a, b) for a, b in zip(after, before))
+    perm = tuple(int(x) for x in np.random.default_rng(0).permutation(16))
+    state = fed.apply_membership(state, replan.regroup_change(
+        fed.plan, GridPlan(16, (4, 4), perm)))
+    ref_state = ref_fed.apply_membership(ref_state, ref_replan.regroup_change(
+        ref_fed.plan, RefGridPlan(16, (4, 4), perm)))
+    assert fed.plan.placement == ref_fed.plan.placement == perm
+    ref_state, state = run_pair(ref_fed, ref_state, fed, state, 2)
+    _assert_trees_close(state.params, ref_state.params)
+    assert fed.comm_bytes == ref_fed.comm_bytes
     with pytest.raises(ValueError, match="planned for 8"):
         fed.apply_membership(state, replan.plan_membership_change(
             GridPlan(8, (2, 2, 2)), 4))

@@ -270,14 +270,30 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         Federation(FederationConfig(n_peers=4))
 
 
+@pytest.mark.parametrize("field,value", [("transport", "socket")])
+def test_unported_fields_raise(field, value):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        FederationConfig(n_peers=8, **{field: value})
+
+
 @pytest.mark.parametrize("field,value", [
     ("adaptive_m", "tail_aware"), ("placement", "clustered"),
-    ("transport", "socket"), ("transport", "vector_sim"),
-    ("transport", "super_sim"),
+    ("transport", "vector_sim"), ("transport", "super_sim"),
 ])
-def test_unported_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FederationConfig(n_peers=8, **{field: value})
+def test_large_n_fields_run(field, value):
+    """The fields the large-N slice ported: two steps on the CPU over
+    modeled wireless links give the reference's ledger and logs."""
+    kw = {field: value, "link_profile": "wireless", "n_peers": 16}
+    fed = Federation(FederationConfig(**kw), device="cpu")
+    ref = RefFederation(RefConfig(**kw))
+    state, ref_state = fed.init_state(), ref.init_state()
+    for _ in range(2):
+        state, ref_state = fed.step(state), ref.step(ref_state)
+    assert state.iteration == 2
+    assert dict(fed.ledger.by_source) == dict(ref.ledger.by_source)
+    assert fed.sim_seconds == ref.sim_seconds
+    assert fed.regroup_log == ref.regroup_log
+    assert fed.placement_log == ref.placement_log
 
 
 @pytest.mark.parametrize("field,value", [

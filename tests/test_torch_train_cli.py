@@ -9,8 +9,11 @@
   live beside the port.
 * Every architecture trains 3 steps at 4 peers with finite losses.
 * ``--ckpt-dir`` then ``--resume`` with another ``--peers`` restores
-  elastically; the unported flags raise naming their ROADMAP.md item;
-  without ``--device`` the trainer raises where there is no CUDA.
+  elastically; the large-N flags (``--adaptive-m``, ``--placement``,
+  ``--transport vector_sim | super_sim``) give the reference's regroup
+  and comm-total lines at 16 peers; the unported flags raise naming
+  their ROADMAP.md item; without ``--device`` the trainer raises where
+  there is no CUDA.
 """
 import contextlib
 import io
@@ -104,10 +107,6 @@ def test_checkpoint_then_elastic_resume(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--adaptive-m", "tail_aware"], "Queue 1 item 13"),
-    (["--placement", "clustered"], "Queue 1 item 13"),
-    (["--transport", "vector_sim"], "Queue 1 item 13"),
-    (["--transport", "super_sim"], "Queue 1 item 13"),
     (["--transport", "socket"], "Queue 1 item 14"),
     (["--peer-hosts", "book.json"], "Queue 1 item 14"),
     (["--rank", "1"], "Queue 1 item 14"),
@@ -116,6 +115,39 @@ def test_unported_flags_name_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(["--arch", "starcoder2-3b", "--smoke", "--device", "cpu",
                     *flags])
+
+
+@pytest.mark.parametrize("case", ["adaptive_m", "placement", "vector_sim",
+                                  "super_sim", "schedule"])
+def test_large_n_flags_give_the_references_lines(monkeypatch, case):
+    """``--adaptive-m``, ``--placement`` and ``--transport vector_sim |
+    super_sim`` at 16 peers: the regroup and comm-total lines, byte for
+    byte, are the constant ``chip_smoke.py`` holds and the reference's
+    CLI's, run live. The placement cases regroup after step 1 and bill
+    their probes; ``schedule`` injects a ``ScheduleController`` into
+    both packages, so the trainer's adaptive regroup (the pipeline
+    re-bound, the step rebuilt for (4, 4)) runs and the ledger follows
+    the new grid."""
+    from repro.core import adaptive as ref_adaptive
+
+    cs = _chip_smoke(monkeypatch)
+    flags, want = cs.TRAIN_CLI_LARGE_N[case]
+    if case == "schedule":
+        for mod, attr in ((ref_adaptive, "build_controller"),
+                          (train, "build_controller")):
+            real = getattr(mod, attr)
+            monkeypatch.setattr(mod, attr, (
+                lambda real: lambda name, plan, **kw: real(
+                    name, plan, schedule=cs.TRAIN_CLI_LARGE_N_SCHEDULE,
+                    **kw))(real))
+    argv = [*cs.TRAIN_CLI_LARGE_N_BASE, *flags]
+
+    def lines(out):
+        return tuple(ln for ln in out.splitlines()
+                     if "regroup" in ln or ln.startswith("[train] comm"))
+
+    assert lines(_run(train.main, [*argv, "--device", "cpu"])) == want
+    assert lines(_run(ref_train.main, argv)) == want
 
 
 def test_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):

@@ -3,7 +3,8 @@
 ``chip_smoke.py`` and the port's tests hold the port to.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python3 tools/reference_constants.py \
-        [extensions] [figures] [train_cli] [train_chip]
+        [extensions] [figures] [train_cli] [train_chip] [large_n]
+        [train_recurrent] [train_cli_large_n]
 
 For each protocol extension of the quickstart
 (``repro_torch.quickstart.EXTENSIONS``: 27 peers, text task, two local
@@ -21,7 +22,15 @@ line of each CPU CLI case the port's tests run (``TRAIN_CLI_CASES``, at
 the smoke configs), and the ledger's total bytes of the chip's full-width
 musicgen-medium run (4 peers, 6 steps), computed from
 ``core/topology.py`` over ``jax.eval_shape`` of the FL state without
-building the model. Needs jax; takes a few minutes.
+building the model. Then the large-N federation runs of
+``chip_smoke.py``'s ``federation_large_n`` phase (``LARGE_N_RUNS``: the
+text model at N = 125 under adaptive group sizing on each transport, and
+clustered placement at N = 64, 20 iterations): the ledger by source,
+``sim_seconds``, ``regroup_log`` and ``placement_log`` at seed 0 and
+the accuracy at iteration 20 for seeds 0-2; the full-width zamba2-2.7b
+and xlstm-350m trainer ledgers (``TRAIN_RECURRENT``, 4 peers, 6 steps);
+and the regroup and comm-total lines of the trainer's large-N CLI cases
+(``TRAIN_CLI_LARGE_N``). Needs jax; takes several minutes.
 """
 from __future__ import annotations
 
@@ -117,7 +126,9 @@ def train_cli_lines() -> None:
     print(json.dumps({"train_cli_comm": lines}), flush=True)
 
 
-def train_chip_bytes() -> None:
+def _train_ledger(arch: str, peers: int, steps: int) -> dict:
+    """The trainer's ledger after ``steps`` full-participation steps of
+    ``arch`` at full width, from ``jax.eval_shape`` of the FL state."""
     import jax
 
     from repro.configs.registry import get_config
@@ -127,21 +138,80 @@ def train_chip_bytes() -> None:
     from repro.core.moshpit import plan_grid
     from repro.models.model import Model
 
-    n, steps = TRAIN_CHIP["peers"], TRAIN_CHIP["steps"]
-    model = Model(get_config(TRAIN_CHIP["arch"]))
+    model = Model(get_config(arch))
     shape = jax.eval_shape(
-        lambda: init_fl_state(model, n, jax.random.PRNGKey(0)))
+        lambda: init_fl_state(model, peers, jax.random.PRNGKey(0)))
     peer_model_bytes = (topology.pytree_bytes(shape["params"])
-                        + topology.pytree_bytes(shape["momentum"])) // n
-    grid = plan_grid(n)
+                        + topology.pytree_bytes(shape["momentum"])
+                        ) // peers
+    grid = plan_grid(peers)
     pipeline = build_pipeline("mar", grid, backend="device")
     ledger = CommLedger()
     for _ in range(steps):
-        pipeline.record_iteration(ledger, n, peer_model_bytes)
-    print(json.dumps({"train_chip": {
-        **TRAIN_CHIP, "grid": list(grid.dims),
-        "peer_model_bytes": peer_model_bytes,
-        "comm_total_bytes": ledger.total_bytes}}), flush=True)
+        pipeline.record_iteration(ledger, peers, peer_model_bytes)
+    return {"arch": arch, "peers": peers, "steps": steps,
+            "grid": list(grid.dims), "peer_model_bytes": peer_model_bytes,
+            "params": model.cfg.param_count(),
+            "comm_total_bytes": ledger.total_bytes}
+
+
+def train_chip_bytes() -> None:
+    print(json.dumps({"train_chip": _train_ledger(
+        TRAIN_CHIP["arch"], TRAIN_CHIP["peers"], TRAIN_CHIP["steps"])}),
+        flush=True)
+
+
+def train_recurrent_bytes() -> None:
+    from chip_smoke import TRAIN_RECURRENT
+
+    for arch in TRAIN_RECURRENT:
+        print(json.dumps({"train_recurrent": _train_ledger(arch, 4, 6)}),
+              flush=True)
+
+
+def large_n_runs(iterations: int = 20) -> None:
+    from chip_smoke import LARGE_N_RUNS
+    from repro.core.federation import Federation, FederationConfig
+
+    for name, kw in LARGE_N_RUNS.items():
+        out = {"run": name, "accuracy_by_seed": []}
+        for seed in (0, 1, 2):
+            fed = Federation(FederationConfig(**kw, seed=seed))
+            state = fed.init_state()
+            for _ in range(iterations):
+                state = fed.step(state)
+            out["accuracy_by_seed"].append(fed.evaluate(state))
+            if seed == 0:
+                out.update(comm_bytes=fed.comm_bytes,
+                           sim_seconds=fed.sim_seconds,
+                           by_source=dict(fed.ledger.by_source),
+                           regroup_log=fed.regroup_log,
+                           placement_log=fed.placement_log)
+        print(json.dumps(out), flush=True)
+
+
+def train_cli_large_n_lines() -> None:
+    from chip_smoke import (TRAIN_CLI_LARGE_N, TRAIN_CLI_LARGE_N_BASE,
+                            TRAIN_CLI_LARGE_N_SCHEDULE)
+    from repro.core import adaptive
+    from repro.launch import train
+
+    real = adaptive.build_controller
+    lines = {}
+    for name, (flags, _) in TRAIN_CLI_LARGE_N.items():
+        if name == "schedule":     # the scripted controller, as the tests
+            adaptive.build_controller = (
+                lambda n, plan, **kw: real(
+                    n, plan, schedule=TRAIN_CLI_LARGE_N_SCHEDULE, **kw))
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train.main([*TRAIN_CLI_LARGE_N_BASE, *flags])
+        finally:
+            adaptive.build_controller = real
+        lines[name] = [ln for ln in buf.getvalue().splitlines()
+                       if "regroup" in ln or ln.startswith("[train] comm")]
+    print(json.dumps({"train_cli_large_n": lines}), flush=True)
 
 
 def main() -> None:
@@ -151,7 +221,10 @@ def main() -> None:
     for name, fn in (("extensions", extension_runs),
                      ("figures", figure_rows),
                      ("train_cli", train_cli_lines),
-                     ("train_chip", train_chip_bytes)):
+                     ("train_chip", train_chip_bytes),
+                     ("large_n", large_n_runs),
+                     ("train_recurrent", train_recurrent_bytes),
+                     ("train_cli_large_n", train_cli_large_n_lines)):
         if not only or name in only:
             fn()
 
