@@ -88,11 +88,14 @@ Phases, each printing JSON lines:
                 computed by the kernel-off route from the same input,
                 within 1e-5 of the kernel's. Each row gives
                 first_step_ms, ms_per_iteration and the card.
-   figures    — ``repro_torch.figures --smoke`` (Figs. 1-5, 8 peers, 6
-                iterations) on the card, the group mean in the kernel:
-                every row's comm_mb and sim_s equal the reference's
-                (FIGURE_ROWS), Fig. 5's divergence from FedAvg within
-                1e-5, the kernel launched, each run's ms per iteration.
+   figures    — ``repro_torch.figures --smoke`` (Figs. 1-5, 8 and 11, 8
+                peers, 6 iterations) on the card, the group mean in the
+                kernel: every row's comm_mb and sim_s equal the
+                reference's (FIGURE_ROWS), Fig. 5's divergence from
+                FedAvg within 1e-5, Fig. 8's partition statistics and
+                Fig. 11's comm_mb equal and their accuracy in the band
+                (FIGURE_EXT_ROWS), the kernel launched, each run's ms per
+                iteration.
                 Then Fig. 5's MAR (kernel on and off) and FedAvg
                 configs at N=125, two runs of 10 steps each: every
                 route is exact from run to run.
@@ -111,6 +114,24 @@ Phases, each printing JSON lines:
                 band, and every aggregation of a second run within 1e-5
                 of the kernel-off route on the same input; ms per
                 iteration per transport.
+   federation_socket — the real TCP transport: the quickstart (kernel
+                on) over ``transport="socket"`` in loopback mode, 20
+                iterations, its theta and m bit-equal to the sim route's
+                after every iteration, the reference's 2,618,231,040
+                bytes, 60 launches, accuracy >= 0.30, the frames'
+                payload bytes the billed bytes and the payload blobs
+                encoded on the card byte-equal to the CPU's, ms per
+                iteration beside the sim route's; the same under
+                injected loss (SOCKET_LOSSY: each iteration's lost
+                senders, the ledger and the accuracy band of SOCKET_REF);
+                two spawned ranks of a loopback address book over the
+                quickstart's mar, ar and fedavg plans, byte-exact
+                against the sim, and ``python -m
+                repro_torch.transport_calibration --smoke``; the
+                starcoder2-3b smoke trainer over socket in process and
+                as two rank processes (``--peer-hosts``, ``--rank``), each
+                comm-total line the reference's (TRAIN_CLI_COMM,
+                TRAIN_CLI_RANKS, wall-clock seconds masked).
 7. profile    — ten quickstart steps under ``torch.profiler``: host and
                 device time of each layer ``Federation.step`` labels
                 (transport, local update, aggregation), the
@@ -213,11 +234,12 @@ Phases, each printing JSON lines:
                 launches on the card.
 17. kernels   — one JSON object per kernel: launches on its main path
                 (the group mean's: the federation run's 60, the
-                extension runs' 427, the smoke figures' and the large-N
-                runs'; flash's and the paged kernel's include the
-                moonshot run's, flash's the training runs' too, the SSD
-                scan's the recurrent training runs'), max error, times,
-                bound.
+                extension runs' 427, the smoke figures', the large-N
+                runs' and the socket runs' 120; flash's and the paged
+                kernel's include the moonshot run's, flash's the
+                training runs' and the in-process socket trainer's too,
+                the SSD scan's the recurrent training runs'), max error,
+                times, bound.
 
 Phase 4 also runs the flash kernel at zamba2's shared-attention shape
 (s=512, h=kvh=32, d=80, bf16), flash and the paged kernel at
@@ -283,6 +305,24 @@ EXTENSION_REF = {
     "elastic": (1215376384, 0.8112654079999999,
                 (0.2693, 0.5305)),   # seeds 0-2: 0.4268, 0.373, 0.4082
 }
+# The quickstart over the socket transport under injected loss (the
+# federation_socket phase): the socket keeps only the loss rate of the
+# link knobs and draws each peer-sourced frame's loss from (seed,
+# iteration) alone
+SOCKET_LOSSY = dict(transport="socket", link_params={"loss": 0.2})
+# The reference's socket run of the quickstart under SOCKET_LOSSY at seed 0
+# (20 iterations): each iteration's lost senders as a bit mask (bit i is
+# peer i), the ledger by source, and the accuracy band at iteration 20
+# (seeds 0-2 widened by their spread plus 0.05, as EXTENSION_REF); from
+# the JAX package on the CPU through tools/reference_constants.py
+SOCKET_REF = dict(
+    lost_senders=[82247135, 99270654, 56612351, 132119550, 133922796,
+                  96320281, 131583615, 116744053, 133431119, 29222197,
+                  134208983, 50261903, 117372821, 66402303, 115862508,
+                  111081439, 117063679, 49585849, 115105407, 134176158],
+    by_source={"agg/mar": 2618231040.0},
+    band=(0.2459, 0.4865),   # seeds 0-2: 0.3896, 0.376, 0.3428
+)
 # repro_torch.figures --smoke: each row's comm_mb and sim_s as the
 # reference's figure scripts print them at that scale, seed 0 (None: the
 # row has no such field); same source
@@ -302,6 +342,42 @@ FIGURE_ROWS = (
     ("fig5_divergence", None, None), ("fig5_divergence", None, None),
     ("fig5_divergence", None, None),
 )
+# repro_torch.figures --smoke, Figs. 8 and 11: each row as the reference's
+# scripts (benchmarks/fig{8_noniid,11_approx_agg}.py) print it at that
+# scale, seed 0, from the JAX package on the CPU through
+# tools/reference_constants.py. figure_ext_mismatches holds the port to
+# them: final_acc within FIGURE_EXT_ACC_BAND (twice the largest spread of
+# a row's accuracy over the reference's seeds 0-2), fig11's disagreement
+# under 1e-8 where the reference's is f32 rounding (exact MAR) and within
+# a factor of 3 of it where the aggregation is approximate, every other
+# field equal
+FIGURE_EXT_ROWS = (
+    ('fig8_partition', {'alpha': '0.1', 'mean_tv': '0.6987884414592002',
+                        'max_tv': '0.7880696614583333', 'min_size': '274',
+                        'max_size': '924'}),
+    ('fig8_partition', {'alpha': '1.0', 'mean_tv': '0.2955856745361357',
+                        'max_tv': '0.40388819515596536', 'min_size': '329',
+                        'max_size': '660'}),
+    ('fig8_partition', {'alpha': '100.0', 'mean_tv': '0.03941790572510225',
+                        'max_tv': '0.051544070707684825', 'min_size': '495',
+                        'max_size': '531'}),
+    ('fig8_noniid', {'task': 'text', 'alpha': 'iid', 'final_acc': '0.0654'}),
+    ('fig8_noniid', {'task': 'text', 'alpha': '1.0', 'final_acc': '0.0664'}),
+    ('fig8_noniid', {'task': 'text', 'alpha': '0.1', 'final_acc': '0.0645'}),
+    ('fig8_noniid', {'task': 'vision', 'alpha': 'iid', 'final_acc': '0.103'}),
+    ('fig8_noniid', {'task': 'vision', 'alpha': '1.0', 'final_acc': '0.1016'}),
+    ('fig8_noniid', {'task': 'vision', 'alpha': '0.1', 'final_acc': '0.106'}),
+    ('fig11_approx', {'setting': 'exact_3^3', 'group_size': '3',
+                      'rounds': 'exact', 'final_acc': '0.0664',
+                      'comm_mb': '135.8', 'disagreement': '5.16e-10'}),
+    ('fig11_approx', {'setting': 'approx_3x2', 'group_size': '3',
+                      'rounds': '2', 'final_acc': '0.0664', 'comm_mb': '135.8',
+                      'disagreement': '5.16e-10'}),
+    ('fig11_approx', {'setting': 'approx_3x1', 'group_size': '3',
+                      'rounds': '1', 'final_acc': '0.0693', 'comm_mb': '67.9',
+                      'disagreement': '7.21e-07'}),
+)
+FIGURE_EXT_ACC_BAND = 2 * 0.0161
 MAIN_PATH_D = (98304, 128, 2560, 20)    # fc1.w, fc1.b, fc2.w, fc2.b
 # the extension runs whose kernel-off rerun must end within 1e-5. The
 # others turn a 1e-7 difference into a step: int8 EF into a quantum, MKD
@@ -313,7 +389,8 @@ KERNEL_OFF_GATED = ("async", "elastic")
 # The LM trainer (repro_torch.launch.train): the comm-total line the
 # reference prints for each CPU CLI case (tools/reference_constants.py's
 # TRAIN_CLI_CASES, "--smoke --steps 3 --peers 4 --seq 32" plus the
-# case's flags), and the ledger's total bytes of the full-width chip run
+# case's flags; the socket's wall-clock seconds masked by wall_masked),
+# and the ledger's total bytes of the full-width chip run
 # below (musicgen-medium, 4 peers, 6 steps: 10,910,287,872 bytes of
 # theta and m per peer), both from the JAX package on the CPU through
 # tools/reference_constants.py
@@ -330,12 +407,25 @@ TRAIN_CLI_COMM = {
                                 "agg/mar=113.4MB comm_s=24.30 "
                                 "[simulated (wireless)]",
     "musicgen-medium resize": "[train] comm total=85.1MB agg/mar=85.1MB",
+    "starcoder2-3b socket": "[train] comm total=99.3MB agg/mar=99.3MB "
+                            "comm_s=<wall> [wall-clock]",
+    "musicgen-medium socket": "[train] comm total=113.4MB "
+                              "agg/mar=113.4MB comm_s=<wall> [wall-clock]",
+}
+# each rank's comm-total line of the two-rank socket world (TRAIN_CLI_BASE
+# plus --transport socket --peer-hosts BOOK --rank R over a loopback book
+# dealing nodes round-robin: each rank bills what its two nodes receive);
+# same source
+TRAIN_CLI_RANKS = {
+    "starcoder2-3b": ("[train] comm total=49.6MB agg/mar=49.6MB "
+                      "comm_s=<wall> [wall-clock]",) * 2,
 }
 TRAIN_CLI_BASE = ("--smoke", "--steps", "3", "--peers", "4", "--seq", "32")
 TRAIN_CLI_CASES = {"default": (), "sessions": ("--churn", "sessions"),
                    "wireless": ("--link-profile", "wireless",
                                 "--link-loss", "0.1"),
-                   "resize": ("--resize-at", "2:2")}
+                   "resize": ("--resize-at", "2:2"),
+                   "socket": ("--transport", "socket")}
 # The trainer's large-N flags at 16 peers: each CPU CLI case's regroup
 # and comm-total lines as the reference prints them (same source; the
 # schedule case's controller is ScheduleController, injected in both
@@ -444,6 +534,42 @@ TRAIN_LAYERS = 48
 # microbatches are 1
 TRAIN_FLASH_PER_STEP = TRAIN_LAYERS * 4 * 2
 TRAIN_TOKENS_PER_STEP = 4 * 2 * 128
+
+
+def wall_masked(line: str) -> str:
+    """A trainer's comm-total line with its wall-clock seconds (the
+    socket transport's, which no two runs share) masked."""
+    import re
+
+    return re.sub(r"comm_s=[0-9.]+ \[wall-clock\]",
+                  "comm_s=<wall> [wall-clock]", line)
+
+
+def figure_ext_mismatches(rows) -> list:
+    """How the Fig. 8 and 11 rows of ``rows`` (``figures.run_figures``'s
+    dicts) part from FIGURE_EXT_ROWS; empty where they agree."""
+    got = [r for r in rows if r["row"] in ("fig8_partition", "fig8_noniid",
+                                           "fig11_approx")]
+    if [r["row"] for r in got] != [name for name, _ in FIGURE_EXT_ROWS]:
+        return [f"rows {[r['row'] for r in got]}"]
+    bad = []
+    for r, (name, want) in zip(got, FIGURE_EXT_ROWS):
+        if sorted(k for k in r if k != "row") != sorted(want):
+            bad.append(f"{name} keys {sorted(r)}")
+            continue
+        for key, value in want.items():
+            have = str(r[key])
+            if key == "final_acc":
+                ok = abs(float(have) - float(value)) <= FIGURE_EXT_ACC_BAND
+            elif key == "disagreement":
+                ref = float(value)
+                ok = (float(have) < 1e-8 if ref < 1e-8
+                      else ref / 3 <= float(have) <= 3 * ref)
+            else:
+                ok = have == value
+            if not ok:
+                bad.append(f"{name} {key}={have}, the reference's {value}")
+    return bad
 
 
 def emit(phase: str, **fields) -> None:
@@ -791,6 +917,252 @@ def phase_federation(torch, smi):
     return launches
 
 
+def _socket_quickstart(torch, cfg, ops, each=None, iterations: int = 20
+                       ) -> dict:
+    """The quickstart config ``cfg`` over the socket transport for
+    ``iterations`` steps, the counts set to 0 just before and read just
+    after; ``each(t, fed, state)`` runs after every step, outside the
+    timed region. Returns the federation, the state, step seconds, the
+    accuracy at the end, the group-mean launches and the frames' payload
+    bytes."""
+    from repro_torch.core.federation import Federation
+
+    fed = Federation(cfg)
+    state = fed.init_state()
+    step_s, payload = [], 0
+    ops.reset_launch_counts()
+    for t in range(iterations):
+        t0 = time.perf_counter()
+        state = fed.step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        payload += fed.last_transcript.payload_bytes
+        if each is not None:
+            each(t, fed, state)
+    launches = ops.launch_counts()["group_mean"]
+    return {"fed": fed, "state": state, "step_s": step_s,
+            "accuracy": fed.evaluate(state), "launches": launches,
+            "payload_bytes": payload}
+
+
+def _socket_trainer(torch, smi, tmp: str) -> int:
+    """``launch.train`` over the socket transport at starcoder2-3b's
+    smoke config: once in process (flash counted), then as two rank
+    processes of one loopback book on the card. Each comm-total line,
+    wall-clock masked, is the reference's. Returns flash's launches."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.runtime.socket_transport import AddressBook
+
+    argv = ["--arch", "starcoder2-3b", *TRAIN_CLI_BASE,
+            *TRAIN_CLI_CASES["socket"]]
+    cfg = get_smoke_config("starcoder2-3b")
+    # 3 steps x 4 peers x every layer, forward and remat recompute
+    want_flash = 3 * 4 * cfg.num_layers * (2 if cfg.remat == "block" else 1)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    flash = ops.launch_counts()["flash_attention"]
+    one_s = time.perf_counter() - t0
+    line = wall_masked(next(ln for ln in buf.getvalue().splitlines()
+                            if ln.startswith("[train] comm total=")))
+    check(rc == 0, "federation_socket trainer: main did not return 0")
+    check(line == TRAIN_CLI_COMM["starcoder2-3b socket"],
+          f"federation_socket trainer: {line!r}")
+    check(flash == want_flash, f"federation_socket trainer: flash launched "
+                               f"{flash} times, expected {want_flash}")
+
+    book = os.path.join(tmp, "book.json")
+    AddressBook.loopback(4, world_size=2).to_json(book)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--peer-hosts", book, "--rank", str(r)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    two_s = time.perf_counter() - t0
+    lines = [[wall_masked(ln) for ln in out.splitlines()
+              if ln.startswith("[train] comm total=")] for out, _ in outs]
+    emit("federation_socket_trainer", args=argv, flash_launches=flash,
+         in_process_s=one_s, two_rank_s=two_s,
+         rank_lines=lines, rank_rcs=[p.returncode for p in procs],
+         card=smi)
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"federation_socket rank {r} exited "
+                                 f"{p.returncode}: {err[-2000:]}")
+        check(lines[r] == [TRAIN_CLI_RANKS["starcoder2-3b"][r]],
+              f"federation_socket rank {r}: {lines[r]}")
+    return flash
+
+
+def phase_federation_socket(torch, smi):
+    """The federation and the trainer over the real TCP transport.
+
+    1. The quickstart (kernel on) over ``transport="socket"`` in
+       loopback mode, 20 iterations: theta and m after every iteration
+       bit-equal to the sim route's (a lossless transport changes no
+       mask), the reference's ledger, 60 group-mean launches, accuracy
+       >= 0.30, the frames' payload bytes equal to the billed bytes, and
+       the blobs of iteration 0 encoded on the card byte-equal to the
+       same state's encoded on the CPU; ms per iteration beside the sim
+       route's.
+    2. The same under injected loss (SOCKET_LOSSY): each iteration's
+       lost senders and the ledger by source the reference's
+       (SOCKET_REF), accuracy in its band, 60 launches.
+    3. ``run_multiprocess`` (two spawned ranks on a loopback book) over
+       the quickstart's mar, ar and fedavg plans, byte-exact against the
+       sim; then ``python -m repro_torch.transport_calibration --smoke``
+       exits 0.
+    4. The trainer over socket, in process and as two rank processes
+       (``_socket_trainer``).
+    Returns (group-mean launches, flash launches)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.aggregation import build_pipeline
+    from repro_torch.core.federation import Federation
+    from repro_torch.kernels import ops
+    from repro_torch.quickstart import quickstart_config
+    from repro_torch.runtime.socket_transport import (encode_state_payloads,
+                                                      run_multiprocess)
+    from repro_torch.runtime.transport_base import build_transport
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = quickstart_config(kernel_group_mean=True)
+    sim = Federation(cfg)
+    state = sim.init_state()
+    sim_s, sim_trees = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        state = sim.step(state)
+        torch.cuda.synchronize()
+        sim_s.append(time.perf_counter() - t0)
+        sim_trees.append([x.clone() for x in tree_leaves(
+            {"p": state.params, "m": state.momentum})])
+
+    first = Federation(dataclasses.replace(cfg, transport="socket"))
+    params0 = first.init_state().params
+    blobs_card = encode_state_payloads(params0)
+    blobs_cpu = encode_state_payloads(tree_map(lambda x: x.cpu(), params0))
+    diverged = []
+
+    def same_as_sim(t, fed, st):
+        got = tree_leaves({"p": st.params, "m": st.momentum})
+        if not all(torch.equal(x, y) for x, y in zip(got, sim_trees[t])):
+            diverged.append(t)
+
+    run = _socket_quickstart(torch, dataclasses.replace(
+        cfg, transport="socket"), ops, each=same_as_sim)
+    fed = run["fed"]
+    out = {"n_peers": cfg.n_peers, "grid": list(fed.plan.dims),
+           "comm_bytes": fed.comm_bytes,
+           "payload_bytes": run["payload_bytes"],
+           "wall_clock_comm_s": fed.sim_seconds,
+           "accuracy": run["accuracy"], "launches": run["launches"],
+           "diverged_iterations": diverged,
+           "blob_bytes": len(blobs_card[0]),
+           "blobs_card_equal_cpu": blobs_card == blobs_cpu,
+           "first_step_ms": run["step_s"][0] * 1e3,
+           "ms_per_iteration": statistics.median(run["step_s"][1:]) * 1e3,
+           "sim_ms_per_iteration": statistics.median(sim_s[1:]) * 1e3,
+           "card": smi}
+    emit("federation_socket", **out)
+    check(not diverged, f"federation_socket: theta or m differ from the "
+                        f"sim route after iterations {diverged}")
+    check(fed.comm_bytes == QUICKSTART_BYTES,
+          f"federation_socket: comm_bytes {fed.comm_bytes}")
+    check(run["payload_bytes"] == fed.comm_bytes,
+          f"federation_socket: payload {run['payload_bytes']} != billed "
+          f"{fed.comm_bytes}")
+    check(run["launches"] == 60,
+          f"federation_socket: {run['launches']} group-mean launches")
+    check(run["accuracy"] >= 0.30,
+          f"federation_socket: accuracy {run['accuracy']} < 0.30")
+    check(blobs_card == blobs_cpu and len(blobs_card) == cfg.n_peers,
+          "federation_socket: the card's payload blobs differ from the "
+          "CPU's")
+    launches = run["launches"]
+
+    lost = []
+    lossy = _socket_quickstart(
+        torch, dataclasses.replace(cfg, **SOCKET_LOSSY), ops,
+        each=lambda t, f, st: lost.append(sum(
+            1 << int(i) for i in f.last_transcript.lost_senders.nonzero()[0])))
+    lo, hi = SOCKET_REF["band"]
+    emit("federation_socket_lossy", link_params=SOCKET_LOSSY["link_params"],
+         lost_senders=lost, by_source=dict(lossy["fed"].ledger.by_source),
+         accuracy=lossy["accuracy"], band=[lo, hi],
+         launches=lossy["launches"],
+         ms_per_iteration=statistics.median(lossy["step_s"][1:]) * 1e3,
+         card=smi)
+    check(lost == SOCKET_REF["lost_senders"],
+          f"federation_socket lossy: lost senders {lost}")
+    check(dict(lossy["fed"].ledger.by_source) == SOCKET_REF["by_source"],
+          f"federation_socket lossy: ledger {lossy['fed'].ledger.by_source}")
+    check(lo <= lossy["accuracy"] <= hi,
+          f"federation_socket lossy: accuracy {lossy['accuracy']} outside "
+          f"[{lo}, {hi}]")
+    check(lossy["launches"] == 60,
+          f"federation_socket lossy: {lossy['launches']} launches")
+    launches += lossy["launches"]
+
+    mask = np.ones(cfg.n_peers, np.float32)
+    techs = ("mar", "ar", "fedavg")
+    plans = [build_pipeline(t, sim.plan).message_plan(
+        mask, sim.model_bytes, cfg.n_peers) for t in techs]
+    t0 = time.perf_counter()
+    merged = run_multiprocess(cfg.n_peers, plans, world_size=2)
+    mp_s = time.perf_counter() - t0
+    net = build_transport("sim", cfg.n_peers, profile="uniform")
+    exact = {}
+    for tech, p, tr in zip(techs, plans, merged):
+        ref = net.run(p)
+        exact[tech] = (tr.total_bytes == ref.total_bytes
+                       and tr.bytes_by_round == ref.bytes_by_round
+                       and tr.bytes_by_link == ref.bytes_by_link
+                       and tr.n_messages == ref.n_messages)
+    t0 = time.perf_counter()
+    cal = subprocess.run(
+        [sys.executable, "-m", "repro_torch.transport_calibration",
+         "--smoke"], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    emit("federation_socket_2proc", plans=list(techs), byte_exact=exact,
+         bytes=[int(tr.total_bytes) for tr in merged], seconds=mp_s,
+         calibration_rc=cal.returncode,
+         calibration_s=time.perf_counter() - t0,
+         calibration_summary=cal.stdout.strip().splitlines()[-1:],
+         card=smi)
+    check(all(exact.values()), f"federation_socket 2proc: {exact}")
+    check(cal.returncode == 0, f"transport_calibration --smoke exited "
+                               f"{cal.returncode}: {cal.stderr[-2000:]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        flash = _socket_trainer(torch, smi, tmp)
+    emit("federation_socket_phase", seconds=time.perf_counter() - t_phase)
+    return launches, flash
+
+
 def phase_vision(torch):
     import torch.nn.functional as F
 
@@ -1125,8 +1497,10 @@ def _rerun_diff(torch, cfg, steps: int) -> float:
 def phase_figures(torch, smi) -> int:
     """``repro_torch.figures --smoke`` on the card, every MAR round's
     group mean in the kernel: every row's comm_mb and sim_s equal the
-    reference's (FIGURE_ROWS), and Fig. 5's divergence within 1e-5.
-    Then Fig. 5's MAR (kernel on and off) and FedAvg configs at N=125
+    reference's (FIGURE_ROWS), and Fig. 5's divergence within 1e-5;
+    Figs. 8 and 11 as ``figure_ext_mismatches`` holds them
+    (FIGURE_EXT_ROWS: partition statistics and comm_mb equal, accuracy
+    in its band). Then Fig. 5's MAR (kernel on and off) and FedAvg configs at N=125
     twice each: every route must be exact from run to run. Returns the
     kernel's launches in the figure runs."""
     import contextlib
@@ -1139,11 +1513,16 @@ def phase_figures(torch, smi) -> int:
     t0 = time.perf_counter()
     ops.reset_launch_counts()
     with contextlib.redirect_stdout(io.StringIO()):
-        rows = run_figures(["1", "2", "3", "4", "5"], scale(False, True), 0,
-                           None, smoke=True)
+        rows = run_figures(["1", "2", "3", "4", "5", "8", "11"],
+                           scale(False, True), 0, None, smoke=True)
     launches = ops.launch_counts()["group_mean"]
     seconds = time.perf_counter() - t0
-    got = [r for r in rows if r["row"] not in ("fig1_scaling", "fig_timing")]
+    ext = {name for name, _ in FIGURE_EXT_ROWS}
+    got = [r for r in rows if r["row"] not in ("fig1_scaling", "fig_timing")
+           and r["row"] not in ext]
+    bad = figure_ext_mismatches(rows)
+    check(not bad, f"figures: Figs. 8 and 11 part from the reference: "
+                   f"{bad}")
     check(len(got) == len(FIGURE_ROWS),
           f"figures: {len(got)} rows, the reference prints "
           f"{len(FIGURE_ROWS)}")
@@ -1169,7 +1548,8 @@ def phase_figures(torch, smi) -> int:
                                      kernel_group_mean=True)),
                  ("mar_kernel_off", dict(technique="mar")),
                  ("fedavg", dict(technique="fedavg")))}
-    emit("figures", seconds=seconds, rows=got, launches=launches,
+    emit("figures", seconds=seconds, rows=got,
+         ext_rows=[r for r in rows if r["row"] in ext], launches=launches,
          ms_per_iteration={f"{r['fig']}/{r['run']}": r["ms_per_iteration"]
                            for r in timing},
          rerun_max_param_diff_n125_10_steps=rerun, card=smi)
@@ -3017,6 +3397,8 @@ def main() -> None:
     launches += phase_federation_extensions(torch, smi)
     launches += phase_figures(torch, smi)
     launches += phase_federation_large_n(torch, smi)
+    socket_launches, socket_flash = phase_federation_socket(torch, smi)
+    launches += socket_launches
     phase_profile(torch)
     serve_launches = phase_serve(torch, smi)
     phase_serve_parity(torch)
@@ -3033,12 +3415,13 @@ def main() -> None:
     # group_mean: the round row of the main path (the quickstart's theta
     # and m, N=27, round 0, one launch), its error the largest over the
     # three rounds, its launches those of the quickstart, of its
-    # protocol-extension runs, of the smoke figures and of the large-N
-    # runs (kernel on); the attention kernels: their first (bf16,
-    # serving-path) row; ssd_scan: its first (zamba2, bf16) row.
-    # Launches: each path's count, read right after it ran, summed over
-    # the paths a kernel lies on (flash: starcoder2, zamba2 and moonshot
-    # prefills and the musicgen and zamba2 training steps; paged:
+    # protocol-extension runs, of the smoke figures, of the large-N
+    # runs and of the socket runs (kernel on); the attention kernels:
+    # their first (bf16, serving-path) row; ssd_scan: its first (zamba2,
+    # bf16) row. Launches: each path's count, read right after it ran,
+    # summed over the paths a kernel lies on (flash: starcoder2, zamba2
+    # and moonshot prefills, the musicgen and zamba2 training steps and
+    # the in-process socket trainer's steps; paged:
     # starcoder2 and moonshot decode steps; ssd_scan: the zamba2 and
     # xlstm prefills and training steps)
     qs = [r for r in round_rows if r["kind"] == "quickstart"]
@@ -3056,7 +3439,8 @@ def main() -> None:
                      + recurrent_launches["flash_attention"]
                      + moe_launches["flash_attention"]
                      + train_launches["flash_attention"]
-                     + recurrent_train_launches["flash_attention"],
+                     + recurrent_train_launches["flash_attention"]
+                     + socket_flash,
                      flash_rows[0]),
         kernel_entry("paged_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -23,8 +23,10 @@ join/leave it asks for (``cfg.resize_schedule`` or a trace) becomes a
 :class:`~repro_torch.core.replan.MembershipChange` through
 :meth:`Federation.apply_membership`, mid-run. Every step unrolls the
 aggregation into a message plan and runs it through the ``"sim"``
-transport; the transcript feeds the ledger, and lost sends demote their
-peer to receiver-only for the iteration.
+transport (or really sends it over loopback TCP with ``"socket"``,
+each peer's int8-serialized theta in the frames); the transcript feeds
+the ledger, and lost sends demote their peer to receiver-only for the
+iteration.
 
 Where the reference draws from ``jax.random`` keys, the port draws from
 ``torch.Generator``s on the federation's device: the initial parameters
@@ -71,8 +73,8 @@ from repro_torch.data.synthetic import classification_task
 from repro_torch.models.small import build_peer_model
 from repro_torch.optim.sgdm import momentum_sgd_init, momentum_sgd_step
 from repro_torch.runtime.lifecycle import PeerLifecycle, build_lifecycle
-from repro_torch.runtime.transport_base import (UNPORTED_TRANSPORTS,
-                                                build_transport,
+from repro_torch.runtime.socket_transport import encode_state_payloads
+from repro_torch.runtime.transport_base import (build_transport,
                                                 demote_lost_senders)
 from repro_torch.tree import Tree, tree_leaves, tree_map
 
@@ -142,13 +144,6 @@ class FederationConfig:
     link_params: Optional[Dict[str, Any]] = None
     transport: str = "sim"
     seed: int = 0
-
-    def __post_init__(self):
-        if self.transport in UNPORTED_TRANSPORTS:
-            raise NotImplementedError(
-                f"transport {self.transport!r} is not ported yet "
-                f"(ROADMAP.md, {UNPORTED_TRANSPORTS[self.transport]}); "
-                f"use 'sim'")
 
     def grid(self) -> GridPlan:
         return plan_grid(self.n_peers, self.group_size)
@@ -342,6 +337,27 @@ class Federation:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.cfg.seed + offset)
         return gen
+
+    # ------------------------------------------------------------------
+    # masks (legacy API — the lifecycle is the pluggable source now)
+    # ------------------------------------------------------------------
+    def sample_masks(self, rng: np.random.Generator
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """(participates U_t, aggregates A_t) boolean masks, float32.
+
+        Kept for callers that pre-compute masks; ``step()`` itself asks
+        ``self.lifecycle`` (whose Bernoulli model replays this exact
+        sampling sequence for ``churn=None`` configs).
+        """
+        n = self.cfg.n_peers
+        u = rng.random(n) < self.cfg.participation_rate
+        if not u.any():
+            u[rng.integers(n)] = True
+        drop = rng.random(n) < self.cfg.dropout_rate
+        a = u & ~drop
+        if not a.any():
+            a[np.flatnonzero(u)[0]] = True
+        return u.astype(np.float32), a.astype(np.float32)
 
     # ------------------------------------------------------------------
     # elastic membership (mid-run, no checkpoint/restart)
@@ -580,8 +596,13 @@ class Federation:
             # loss, peers whose sends were dropped mid-round are demoted
             # to receiver-only (paper §3.1 — they rejoin with the mean).
             # MKD rounds ride the same plan.
+            # a transport that moves real bytes (socket) carries each
+            # peer's int8-serialized theta in its frames
+            payloads = (encode_state_payloads(state.params)
+                        if self.network.wants_payloads else None)
             transcript = self.network.run(
-                self._build_plan(a, n_active, use_kd, kd_logit_bytes))
+                self._build_plan(a, n_active, use_kd, kd_logit_bytes),
+                payloads=payloads)
             self.last_transcript = transcript
             a = demote_lost_senders(a, u, transcript)
             # the masks cross to the device once per step, not per leaf

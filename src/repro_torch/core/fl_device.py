@@ -45,7 +45,6 @@ from repro_torch.core.aggregation import AggregationPipeline, MarAggregator
 from repro_torch.core.moshpit import GridPlan
 from repro_torch.core.replan import (MembershipChange, resize_peer_axis,
                                      select_survivors)
-from repro_torch.models import transformer as T
 from repro_torch.models.model import Device, Model, resolve_device
 from repro_torch.optim.sgdm import momentum_sgd_step
 from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
@@ -147,26 +146,15 @@ def apply_membership(state: Dict[str, Any], change: MembershipChange,
     return out, new_pipeline
 
 
-class _MetaGenerator(torch.Generator):
-    """A CPU generator that names the ``meta`` device, so
-    ``transformer.init_params`` lays out every leaf there (shapes and
-    dtypes, no storage)."""
-
-    @property
-    def device(self) -> torch.device:
-        return torch.device("meta")
-
-
 def fl_state_shape(model: Model, n_peers: int,
                    momentum_dtype: torch.dtype = torch.float32
                    ) -> Dict[str, Any]:
     """The FL state's leaves as tensors on the ``meta`` device: shapes
     and dtypes without allocating (the reference returns
     ShapeDtypeStructs)."""
-    pshape = T.init_params(model.cfg, _MetaGenerator())
     params = tree_map(
         lambda x: torch.empty((n_peers, *x.shape), dtype=x.dtype,
-                              device="meta"), pshape)
+                              device="meta"), model.init_shape())
     mom = tree_map(lambda p: torch.empty(p.shape, dtype=momentum_dtype,
                                          device="meta"), params)
     return {"params": params, "momentum": mom,

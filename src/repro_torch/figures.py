@@ -1,8 +1,9 @@
-"""The paper's Figs. 1-5 on the port: the same configs and CSV rows as
-the JAX package's ``benchmarks/fig{1_perf_gap,2_mkd,3_churn,4_dp,
-5_parity}.py``, run through ``repro_torch``.
+"""The paper's Figs. 1-5, 8 and 11 on the port: the same configs and CSV
+rows as the JAX package's ``benchmarks/fig{1_perf_gap,2_mkd,3_churn,
+4_dp,5_parity,8_noniid,11_approx_agg}.py``, run through ``repro_torch``.
 
-    python -m repro_torch.figures [--fig 1 2 3 4 5] [--smoke | --full]
+    python -m repro_torch.figures [--fig 1 2 3 4 5 8 11]
+                                  [--smoke | --full]
                                   [--seed S] [--device cuda|cpu]
 
 * Fig. 1 — bytes to a target accuracy for every technique, and the
@@ -13,7 +14,13 @@ the JAX package's ``benchmarks/fig{1_perf_gap,2_mkd,3_churn,4_dp,
 * Fig. 4 — DP noise sweep with adaptive clipping and RDP epsilon
   (``fig4_dp``);
 * Fig. 5 — MAR = FedAvg = AR = RDFL under exact aggregation
-  (``fig5_parity``, ``fig5_divergence``).
+  (``fig5_parity``, ``fig5_divergence``);
+* Fig. 8 — the Dirichlet partition's heterogeneity at alpha 0.1, 1 and
+  100 (``fig8_partition``), and MAR on iid, alpha 1 and alpha 0.1
+  splits of the text and vision tasks (``fig8_noniid``);
+* Fig. 11 — approximate MAR: smaller groups or fewer rounds than the
+  exact grid, against its bytes and peer disagreement
+  (``fig11_approx``).
 
 Each run also prints one ``fig_timing`` row: its ms per iteration (the
 median over iterations 2..end, the device synchronized after each
@@ -40,6 +47,8 @@ from repro_torch.core import topology
 from repro_torch.core.dp import epsilon_estimate
 from repro_torch.core.federation import (Federation, FederationConfig,
                                          run_federation)
+from repro_torch.data.partition import dirichlet_partition, partition_stats
+from repro_torch.data.synthetic import classification_task
 from repro_torch.runtime.lifecycle import build_lifecycle, save_trace
 from repro_torch.tree import tree_leaves
 
@@ -232,8 +241,49 @@ def fig5(run: _Runner, s: Dict[str, int], seed: int) -> None:
                 max_param_diff=f"{d:.2e}")
 
 
+def fig8(run: _Runner, s: Dict[str, int], seed: int) -> None:
+    """i.i.d. vs non-i.i.d. (Dirichlet alpha) local data splits."""
+    _, train, _ = classification_task("text", seed=seed)
+    for alpha in (0.1, 1.0, 100.0):
+        shards = dirichlet_partition(train["y"], s["peers"], alpha,
+                                     seed=seed)
+        run.row("fig8_partition", alpha=alpha,
+                **partition_stats(shards, train["y"]))
+    for task in ("text", "vision"):
+        for alpha in (None, 1.0, 0.1):
+            label = "iid" if alpha is None else alpha
+            cfg = _config(
+                n_peers=s["peers"], technique="mar", task=task,
+                alpha=alpha, batch_size=64 if task == "vision" else 16,
+                local_batches=s["local_batches"], seed=seed)
+            hist = run.federate("8", f"{task}/{label}", cfg, s)
+            run.row("fig8_noniid", task=task, alpha=label,
+                    final_acc=round(hist["accuracy"][-1], 4))
+
+
+def fig11(run: _Runner, s: Dict[str, int], seed: int) -> None:
+    """Approximate aggregation: smaller groups or fewer MAR rounds trade
+    exactness for communication."""
+    settings = ([(5, None, "exact_5^3"), (3, 4, "approx_3x4"),
+                 (3, 3, "approx_3x3")] if s["peers"] == 125
+                else [(3, None, "exact_3^3"), (3, 2, "approx_3x2"),
+                      (3, 1, "approx_3x1")])
+    for gsize, rounds, label in settings:
+        cfg = _config(
+            n_peers=s["peers"], technique="mar", task="text",
+            group_size=gsize, mar_rounds=rounds,
+            local_batches=s["local_batches"], seed=seed)
+        hist = run.federate("11", label, cfg, s)
+        run.row("fig11_approx", setting=label, group_size=gsize,
+                rounds=(rounds if rounds else "exact"),
+                final_acc=round(hist["accuracy"][-1], 4),
+                comm_mb=round(hist["comm_bytes"][-1] / 1e6, 1),
+                disagreement=f"{hist['disagreement'][-1]:.2e}")
+
+
 FIGURES: Dict[str, Callable[..., None]] = {
-    "1": fig1, "2": fig2, "3": fig3, "4": fig4, "5": fig5}
+    "1": fig1, "2": fig2, "3": fig3, "4": fig4, "5": fig5, "8": fig8,
+    "11": fig11}
 
 
 def run_figures(figs: Sequence[str], s: Dict[str, int], seed: int,
@@ -252,8 +302,8 @@ def run_figures(figs: Sequence[str], s: Dict[str, int], seed: int,
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--fig", nargs="+", choices=sorted(FIGURES),
-                    default=sorted(FIGURES))
+    ap.add_argument("--fig", nargs="+", choices=list(FIGURES),
+                    default=list(FIGURES))
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--full", action="store_true",
                       help="paper-scale settings (125 peers, 150 iterations)")

@@ -15,12 +15,17 @@ messages and times them over modeled links; the ledger and the
 per-step communication seconds then come from the transcript, and lost
 sends (``--link-loss``) demote their peer to receiver-only for that
 step. ``--transport vector_sim`` and ``super_sim`` are the large-N
-engines, with the same transcripts. ``--adaptive-m`` (a group-size
-controller, exact grids only) and ``--placement`` (a topology-aware
-peer-to-slot policy, which probes the links through the live transport
-and bills the probes as ``placement_probe``) watch each step's
-transcript and regroup the grid in place: the pipeline re-binds and the
-train step is rebuilt, the state untouched.
+engines, with the same transcripts. ``--transport socket`` really sends
+the messages over loopback TCP, one asyncio task per peer, each frame
+carrying the peer's int8-serialized theta (copied from the card once a
+step); with ``--peer-hosts BOOK --rank R`` this process is rank R of a
+multi-process world and runs only the book's nodes of rank R, on their
+fixed ports (its ledger bills what its nodes receive). ``--adaptive-m``
+(a group-size controller, exact grids only) and ``--placement`` (a
+topology-aware peer-to-slot policy, which probes the links through the
+live transport and bills the probes as ``placement_probe``) watch each
+step's transcript and regroup the grid in place: the pipeline re-binds
+and the train step is rebuilt, the state untouched.
 
 Permanent membership changes (``--resize-at``, trace join/leave events)
 route through :class:`~repro_torch.core.replan.MembershipChange`:
@@ -32,10 +37,7 @@ must have an exact grid).
 The run is on CUDA (raising where there is none) unless ``--device``
 names another device. Every family trains on the card: the ssm and
 hybrid families' scans launch the SSD-scan kernel forward and take the
-plain chunked scan's VJP backward, as the reference does. The flags of
-the reference's unported pieces raise ``NotImplementedError`` naming
-their ROADMAP.md item: the ``socket`` transport, ``--peer-hosts`` and
-``--rank`` (item 14).
+plain chunked scan's VJP backward, as the reference does.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
@@ -47,6 +49,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
       --smoke --steps 8 --peers 27 --device cpu --link-profile wireless \\
       --transport vector_sim --adaptive-m tail_aware
+  PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
+      --smoke --steps 3 --peers 4 --device cpu --transport socket \\
+      --peer-hosts book.json --rank 0     # and --rank 1, same book
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch musicgen-medium --peers 4 --steps 6     # full width, GPU
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -79,15 +84,8 @@ from repro_torch.models.model import Model, resolve_device
 from repro_torch.runtime.fault import HealthTracker, StragglerPolicy
 from repro_torch.runtime.lifecycle import CHURN_MODELS, build_lifecycle
 from repro_torch.runtime.metrics import MetricsLogger
-from repro_torch.runtime.transport_base import UNPORTED_TRANSPORTS
-
-#: the reference's flags whose pieces are not ported, with their item
-UNPORTED_FLAGS = {
-    "peer_hosts": "--peer-hosts (runtime/socket_transport.py): ROADMAP.md, "
-                  "Queue 1 item 14",
-    "rank": "--rank (runtime/socket_transport.py): ROADMAP.md, Queue 1 "
-            "item 14",
-}
+from repro_torch.runtime.socket_transport import (AddressBook,
+                                                  encode_state_payloads)
 
 #: what ``on_step`` receives after every step
 StepHook = Callable[[Dict[str, Any]], None]
@@ -163,11 +161,12 @@ def _parser() -> argparse.ArgumentParser:
                          "engine with identical transcripts (use for "
                          "large --peers); 'super_sim' adds closed-"
                          "form intra-cluster tiers on top (identical "
-                         "transcripts on uniform/wireless). The "
-                         "reference's socket is not ported (ROADMAP.md, "
-                         "Queue 1 item 14). Default: 'sim' when "
-                         "--link-profile is given, else no transport "
-                         "(analytic accounting)")
+                         "transcripts on uniform/wireless); 'socket' "
+                         "runs every peer as an asyncio task on "
+                         "loopback TCP and really transmits "
+                         "int8-serialized update tensors. Default: "
+                         "'sim' when --link-profile is given, else no "
+                         "transport (analytic accounting)")
     ap.add_argument("--link-profile", default=None,
                     choices=["uniform", "wireless", "regions"],
                     help="discrete-event link model for the sim "
@@ -177,14 +176,19 @@ def _parser() -> argparse.ArgumentParser:
                          "wall-clock come from the transcript")
     ap.add_argument("--link-loss", type=float, default=0.0,
                     help="per-message loss probability on the modeled "
-                         "links; a peer whose send is lost mid-round is "
-                         "demoted to receiver-only for that step")
+                         "links (or injected send failures on the "
+                         "socket transport); a peer whose send is "
+                         "lost mid-round is demoted to receiver-only "
+                         "for that step")
     ap.add_argument("--peer-hosts", default=None, metavar="FILE",
-                    help="socket transport address book: not ported "
-                         "(ROADMAP.md, Queue 1 item 14)")
-    ap.add_argument("--rank", type=int, default=None,
-                    help="rank in a --peer-hosts world: not ported "
-                         "(ROADMAP.md, Queue 1 item 14)")
+                    help="JSON address book for the socket transport "
+                         "(multi-host mode): fixed host:port per plan "
+                         "node plus the owning rank — this process "
+                         "runs only its --rank's nodes; start one "
+                         "process per rank with the same book")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="this process's rank in the --peer-hosts "
+                         "world (default 0)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
@@ -196,20 +200,16 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _check_ported(ap: argparse.ArgumentParser, args) -> None:
-    for field, what in UNPORTED_FLAGS.items():
-        if getattr(args, field) is not None:
-            raise NotImplementedError(f"{what} is not ported yet")
-    if args.transport in UNPORTED_TRANSPORTS:
-        raise NotImplementedError(
-            f"transport {args.transport!r} is not ported yet "
-            f"(ROADMAP.md, {UNPORTED_TRANSPORTS[args.transport]})")
+def _check_transport(ap: argparse.ArgumentParser, args) -> None:
     if args.transport is not None:
         from repro_torch.runtime.transport_base import available_transports
         names = available_transports()
         if args.transport not in names:
             ap.error(f"--transport must be one of {names}, "
                      f"got {args.transport!r}")
+    if args.peer_hosts and args.transport != "socket":
+        ap.error("--peer-hosts is the socket transport's address "
+                 "book; pass --transport socket")
 
 
 def _regroup(t: int, transcript, grid: GridPlan, pipeline, step_fn,
@@ -240,7 +240,7 @@ def main(argv=None, on_step: Optional[StepHook] = None) -> int:
     and ``ledger``."""
     ap = _parser()
     args = ap.parse_args(argv)
-    _check_ported(ap, args)
+    _check_transport(ap, args)
     resize_schedule = []
     if args.resize_at:
         try:
@@ -309,170 +309,186 @@ def main(argv=None, on_step: Optional[StepHook] = None) -> int:
             link_params["loss"] = args.link_loss
         if args.link_shuffle:
             link_params["shuffle"] = True
+        transport_kwargs = {}
+        if args.peer_hosts:
+            book = AddressBook.from_json(args.peer_hosts)
+            print(f"[train] address book: {book.n_nodes} nodes over "
+                  f"{book.world_size} ranks; this is rank {args.rank} "
+                  f"(owns nodes {list(book.owned(args.rank))})")
+            transport_kwargs["address_book"] = book
+            transport_kwargs["rank"] = args.rank
         network = build_transport(
             transport, n_peers, profile=args.link_profile,
-            seed=args.seed, link_params=link_params or None)
-    # the mask-free path needs a genuinely lossless transport too: the
-    # regions profile carries per-tier loss even without --link-loss
-    always_full = args.churn is None and args.participation >= 1.0 \
-        and args.dropout <= 0.0 \
-        and (network is None or network.lossless)
+            seed=args.seed, link_params=link_params or None,
+            **transport_kwargs)
+    try:
+        # the mask-free path needs a genuinely lossless transport too: the
+        # regions profile carries per-tier loss even without --link-loss
+        always_full = args.churn is None and args.participation >= 1.0 \
+            and args.dropout <= 0.0 \
+            and (network is None or network.lossless)
 
-    # every planned permanent resize must have an exact grid: validate
-    # the whole step range now, so an unreachable count fails at launch
-    planned = lifecycle.planned_resizes(start, start + args.steps)
-    if planned:
-        validate_membership_schedule(grid, planned, exact_only=True)
-        print("[train] elastic schedule: " + ", ".join(
-            f"step {ts}: -> {n} peers" for ts, n in planned))
+        # every planned permanent resize must have an exact grid: validate
+        # the whole step range now, so an unreachable count fails at launch
+        planned = lifecycle.planned_resizes(start, start + args.steps)
+        if planned:
+            validate_membership_schedule(grid, planned, exact_only=True)
+            print("[train] elastic schedule: " + ", ".join(
+                f"step {ts}: -> {n} peers" for ts, n in planned))
 
-    controller = None
-    if args.adaptive_m is not None:
-        if args.adaptive_m not in CONTROLLERS:
-            ap.error(f"--adaptive-m must be one of "
-                     f"{sorted(CONTROLLERS)}, got {args.adaptive_m!r}")
-        if network is None:
-            ap.error("--adaptive-m needs a transcript signal: pass "
-                     "--link-profile (sim) or --transport")
-        controller = build_controller(args.adaptive_m, grid,
-                                      exact_only=True)
+        controller = None
+        if args.adaptive_m is not None:
+            if args.adaptive_m not in CONTROLLERS:
+                ap.error(f"--adaptive-m must be one of "
+                         f"{sorted(CONTROLLERS)}, got {args.adaptive_m!r}")
+            if network is None:
+                ap.error("--adaptive-m needs a transcript signal: pass "
+                         "--link-profile (sim) or --transport")
+            controller = build_controller(args.adaptive_m, grid,
+                                          exact_only=True)
 
-    placement_policy = None
-    if args.placement is not None:
-        if args.placement not in PLACEMENTS:
-            ap.error(f"--placement must be one of "
-                     f"{sorted(PLACEMENTS)}, got {args.placement!r}")
-        if network is None:
-            ap.error("--placement needs a transport for link evidence "
-                     "and probe rounds: pass --link-profile (sim) or "
-                     "--transport")
+        placement_policy = None
+        if args.placement is not None:
+            if args.placement not in PLACEMENTS:
+                ap.error(f"--placement must be one of "
+                         f"{sorted(PLACEMENTS)}, got {args.placement!r}")
+            if network is None:
+                ap.error("--placement needs a transport for link evidence "
+                         "and probe rounds: pass --link-profile (sim) or "
+                         "--transport")
 
-        def run_probe(mplan):
-            tr = network.run(mplan)
-            ledger.record("placement_probe", tr.total_bytes)
-            ledger.record_time(tr.iteration_s)
-            return tr
+            def run_probe(mplan):
+                tr = network.run(mplan)
+                ledger.record("placement_probe", tr.total_bytes)
+                ledger.record_time(tr.iteration_s)
+                return tr
 
-        placement_policy = build_placement(args.placement, grid,
-                                           seed=args.seed)
-        placement_policy.bind_prober(run_probe)
+            placement_policy = build_placement(args.placement, grid,
+                                               seed=args.seed)
+            placement_policy.bind_prober(run_probe)
 
-    sync = (torch.cuda.synchronize if device.type == "cuda"
-            else (lambda: None))
-    for t in range(start, start + args.steps):
-        tick = lifecycle.tick(t)
-        if tick.resize_to is not None and tick.resize_to != n_peers:
-            # permanent join/leave, in place: survivors bit-exact,
-            # joiners group-mean-bootstrapped, the step rebuilt for the
-            # new exact grid (validated at launch). No relaunch.
-            change = plan_membership_change(
-                grid, tick.resize_to, iteration=t, exact_only=True)
-            state, pipeline = apply_membership(state, change, pipeline)
-            grid, n_peers = change.new_plan, change.new_n
-            print(f"[train] elastic resize at step {t}: "
-                  f"{change.old_n} -> {change.new_n} peers, "
-                  f"grid={grid.dims} "
-                  f"(+{change.n_joiners} joiners)")
-            step_fn = make_fl_train_step(model, grid, lr=args.lr,
-                                         pipeline=pipeline)
-            stream = lm_token_stream(
-                cfg.vocab_size,
-                n_peers * args.local_steps * args.batch, args.seq,
-                seed=args.seed + t)
+        sync = (torch.cuda.synchronize if device.type == "cuda"
+                else (lambda: None))
+        for t in range(start, start + args.steps):
+            tick = lifecycle.tick(t)
+            if tick.resize_to is not None and tick.resize_to != n_peers:
+                # permanent join/leave, in place: survivors bit-exact,
+                # joiners group-mean-bootstrapped, the step rebuilt for the
+                # new exact grid (validated at launch). No relaunch.
+                change = plan_membership_change(
+                    grid, tick.resize_to, iteration=t, exact_only=True)
+                state, pipeline = apply_membership(state, change, pipeline)
+                grid, n_peers = change.new_plan, change.new_n
+                print(f"[train] elastic resize at step {t}: "
+                      f"{change.old_n} -> {change.new_n} peers, "
+                      f"grid={grid.dims} "
+                      f"(+{change.n_joiners} joiners)")
+                step_fn = make_fl_train_step(model, grid, lr=args.lr,
+                                             pipeline=pipeline)
+                stream = lm_token_stream(
+                    cfg.vocab_size,
+                    n_peers * args.local_steps * args.batch, args.seq,
+                    seed=args.seed + t)
+                if network is not None:
+                    network.resize(n_peers)
+                if controller is not None:
+                    controller.rebind(grid)
+                if placement_policy is not None:
+                    placement_policy.rebind(grid)
+            raw = next(stream)
+            batch = {
+                k: v.reshape(n_peers, args.local_steps, 1, args.batch,
+                             args.seq)
+                for k, v in raw.items()
+            }
+            u, a = tick.u, tick.a
+            # modeled network: time this step's messages first so lost
+            # sends demote their peer before the aggregation runs
+            transcript = None
             if network is not None:
-                network.resize(n_peers)
-            if controller is not None:
-                controller.rebind(grid)
-            if placement_policy is not None:
-                placement_policy.rebind(grid)
-        raw = next(stream)
-        batch = {
-            k: v.reshape(n_peers, args.local_steps, 1, args.batch,
-                         args.seq)
-            for k, v in raw.items()
-        }
-        u, a = tick.u, tick.a
-        # modeled network: time this step's messages first so lost
-        # sends demote their peer before the aggregation runs
-        transcript = None
-        if network is not None:
-            n_act = int(a.sum())
-            mplan = pipeline.message_plan(np.asarray(a), peer_model_bytes,
-                                          n_act)
-            transcript = network.run(mplan)
-            a = demote_lost_senders(a, u, transcript)
-        sync()
-        t0 = time.time()
-        if always_full:
-            state, metrics = step_fn(state, batch)
-        else:
-            # U_t gates the local-update carry, A_t the aggregation — a
-            # straggler keeps its update but misses its group mean
-            state, metrics = step_fn(state, batch, torch.as_tensor(u),
-                                     torch.as_tensor(a))
-        loss = float(metrics["loss"])
-        sync()
-        dt = time.time() - t0
-        if transcript is not None:
-            pipeline.record_transcript(ledger, transcript, n_act,
-                                       peer_model_bytes)
-            # heartbeat with compute + each peer's simulated comm
-            # finish: slow modeled uplinks surface as stragglers via
-            # the lifecycle's deadline policy next iteration
-            lifecycle.observe_durations(
-                t, dt + transcript.peer_finish_s, mask=u)
-            grid, pipeline, step_fn = _regroup(
-                t, transcript, grid, pipeline, step_fn, model, args.lr,
-                controller, placement_policy)
-        else:
-            pipeline.record_iteration(ledger, int(a.sum()),
-                                      peer_model_bytes)
-            # heartbeat every peer that ran this step with its measured
-            # duration; silent peers age toward the sweep timeout
-            lifecycle.observe_durations(t, np.full(n_peers, dt), mask=u)
-        metrics_log.log(t + 1, tokens=n_peers * args.local_steps
-                        * args.batch * args.seq,
-                        sim_s=(transcript.iteration_s
-                               if transcript is not None else None),
-                        loss=loss)
-        if (t + 1) % 5 == 0 or t == start:
-            sim = (f" sim={transcript.iteration_s*1e3:.0f}ms"
-                   if transcript is not None else "")
-            print(f"  step {t+1:4d} loss={loss:.4f} "
-                  f"({dt*1e3:.0f} ms){sim} "
-                  f"active={int(a.sum())}/{n_peers}")
-        if on_step is not None:
-            on_step({"t": t, "state": state, "metrics": metrics,
-                     "seconds": dt, "step_fn": step_fn, "batch": batch,
-                     "ledger": ledger})
-        if ckpt and (t + 1) % args.ckpt_every == 0:
-            ckpt.save(t + 1, state,
-                      metadata={"step": t + 1, "n_peers": n_peers,
+                n_act = int(a.sum())
+                mplan = pipeline.message_plan(np.asarray(a), peer_model_bytes,
+                                              n_act)
+                payloads = (encode_state_payloads(state["params"])
+                            if network.wants_payloads else None)
+                transcript = network.run(mplan, payloads=payloads)
+                a = demote_lost_senders(a, u, transcript)
+            sync()
+            t0 = time.time()
+            if always_full:
+                state, metrics = step_fn(state, batch)
+            else:
+                # U_t gates the local-update carry, A_t the aggregation — a
+                # straggler keeps its update but misses its group mean
+                state, metrics = step_fn(state, batch, torch.as_tensor(u),
+                                         torch.as_tensor(a))
+            loss = float(metrics["loss"])
+            sync()
+            dt = time.time() - t0
+            if transcript is not None:
+                pipeline.record_transcript(ledger, transcript, n_act,
+                                           peer_model_bytes)
+                # heartbeat with compute + each peer's simulated comm
+                # finish: slow modeled uplinks surface as stragglers via
+                # the lifecycle's deadline policy next iteration
+                lifecycle.observe_durations(
+                    t, dt + transcript.peer_finish_s, mask=u)
+                grid, pipeline, step_fn = _regroup(
+                    t, transcript, grid, pipeline, step_fn, model, args.lr,
+                    controller, placement_policy)
+            else:
+                pipeline.record_iteration(ledger, int(a.sum()),
+                                          peer_model_bytes)
+                # heartbeat every peer that ran this step with its measured
+                # duration; silent peers age toward the sweep timeout
+                lifecycle.observe_durations(t, np.full(n_peers, dt), mask=u)
+            metrics_log.log(t + 1, tokens=n_peers * args.local_steps
+                            * args.batch * args.seq,
+                            sim_s=(transcript.iteration_s
+                                   if transcript is not None else None),
+                            loss=loss)
+            if (t + 1) % 5 == 0 or t == start:
+                sim = (f" sim={transcript.iteration_s*1e3:.0f}ms"
+                       if transcript is not None else "")
+                print(f"  step {t+1:4d} loss={loss:.4f} "
+                      f"({dt*1e3:.0f} ms){sim} "
+                      f"active={int(a.sum())}/{n_peers}")
+            if on_step is not None:
+                on_step({"t": t, "state": state, "metrics": metrics,
+                         "seconds": dt, "step_fn": step_fn, "batch": batch,
+                         "ledger": ledger})
+            if ckpt and (t + 1) % args.ckpt_every == 0:
+                ckpt.save(t + 1, state,
+                          metadata={"step": t + 1, "n_peers": n_peers,
+                                    "grid_dims": list(grid.dims),
+                                    "arch": cfg.name},
+                          blocking=False)
+        if ckpt:
+            ckpt.save(start + args.steps, state,
+                      metadata={"step": start + args.steps,
+                                "n_peers": n_peers,
                                 "grid_dims": list(grid.dims),
-                                "arch": cfg.name},
-                      blocking=False)
-    if ckpt:
-        ckpt.save(start + args.steps, state,
-                  metadata={"step": start + args.steps,
-                            "n_peers": n_peers,
-                            "grid_dims": list(grid.dims),
-                            "arch": cfg.name})
-        ckpt.wait()
-        print(f"[train] checkpointed at {start + args.steps}")
-    per_source = " ".join(f"{k}={v/1e6:.1f}MB"
-                          for k, v in ledger.by_source.items())
-    sim = ""
-    if network is not None:
-        sim = (f" comm_s={ledger.total_seconds:.2f} "
-               f"[simulated ({args.link_profile or 'uniform'})]")
-    print(f"[train] comm total={ledger.total_bytes/1e6:.1f}MB "
-          f"{per_source}{sim}")
-    if lifecycle.event_log:
-        by_kind: dict = {}
-        for e in lifecycle.event_log:
-            by_kind[e.kind] = by_kind.get(e.kind, 0) + len(e.peers)
-        print("[train] membership events: " + " ".join(
-            f"{k}={v}" for k, v in sorted(by_kind.items())))
+                                "arch": cfg.name})
+            ckpt.wait()
+            print(f"[train] checkpointed at {start + args.steps}")
+        per_source = " ".join(f"{k}={v/1e6:.1f}MB"
+                              for k, v in ledger.by_source.items())
+        sim = ""
+        if network is not None:
+            kind = ("wall-clock" if network.name == "socket"
+                    else f"simulated ({args.link_profile or 'uniform'})")
+            sim = f" comm_s={ledger.total_seconds:.2f} [{kind}]"
+        print(f"[train] comm total={ledger.total_bytes/1e6:.1f}MB "
+              f"{per_source}{sim}")
+        if lifecycle.event_log:
+            by_kind: dict = {}
+            for e in lifecycle.event_log:
+                by_kind[e.kind] = by_kind.get(e.kind, 0) + len(e.peers)
+            print("[train] membership events: " + " ".join(
+                f"{k}={v}" for k, v in sorted(by_kind.items())))
+    finally:
+        if network is not None and hasattr(network, "close"):
+            network.close()   # book-mode sockets + background loop thread
     return 0
 
 

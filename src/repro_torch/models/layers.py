@@ -155,6 +155,16 @@ def attention_impl(q: Tensor, k: Tensor, v: Tensor,
     return causal_attention(q, k, v, cfg)
 
 
+def attention_block(params: Params, x: Tensor, cfg: ModelConfig,
+                    positions: Tensor) -> Tensor:
+    """Causal self-attention of ``x`` [b, s, d] through ``attention_impl``,
+    projected back by ``wo``."""
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = attention_impl(q, k, v, cfg)
+    b, s = x.shape[:2]
+    return out.reshape(b, s, -1) @ params["wo"]
+
+
 def _decode_qkv(params: Params, x: Tensor, cfg: ModelConfig,
                 pos: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     b = x.shape[0]

@@ -8,8 +8,11 @@ batch carries precomputed patch or frame embeddings ``prefix_embeds``
 ``Model.init`` runs on CUDA unless the caller asks for another device,
 and raises where there is no GPU. Caches are made on the device the
 caller names (the serving engine passes its parameters' device).
-``batch_specs`` and ``input_specs`` wait for the dry-run tooling
-(ROADMAP.md, Queue 1 item 15).
+``init_shape`` and ``cache_shape`` lay their trees out on the ``meta``
+device (shapes and dtypes, no storage), where the reference returns
+``jax.eval_shape``'s ShapeDtypeStructs. ``batch_specs`` and
+``input_specs`` wait for the dry-run tooling (ROADMAP.md, Queue 1 item
+15).
 """
 from __future__ import annotations
 
@@ -36,6 +39,16 @@ def resolve_device(device: Device) -> torch.device:
     return torch.device(device)
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that names the ``meta`` device, so
+    ``transformer.init_params`` lays out every leaf there (shapes and
+    dtypes, no storage)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -46,6 +59,11 @@ class Model:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return T.init_params(self.cfg, gen)
+
+    def init_shape(self) -> Tree:
+        """The parameters as tensors on the ``meta`` device, without
+        allocating."""
+        return T.init_params(self.cfg, _MetaGenerator())
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
@@ -63,6 +81,10 @@ class Model:
     def init_cache(self, batch: int, max_len: int,
                    device: Device = None) -> Tree:
         return T.init_cache(self.cfg, batch, max_len, resolve_device(device))
+
+    def cache_shape(self, batch: int, max_len: int) -> Tree:
+        """The decode cache as tensors on the ``meta`` device."""
+        return T.init_cache(self.cfg, batch, max_len, torch.device("meta"))
 
     def decode_step(self, params: Tree, cache: Tree, token: torch.Tensor
                     ) -> Tuple[torch.Tensor, Tree]:

@@ -19,14 +19,13 @@ plan's scheduled sizes, the socket backend measuring them off received
 frame headers), while the *seconds* axis is modeled on one and
 wall-clock-measured on the other.
 
-Backend selection threads through ``FederationConfig(transport=...)``;
-new backends register with :func:`register_transport` and are built by
-name via :func:`build_transport`.
+Backend selection threads through ``FederationConfig(transport=...)``
+and ``launch/train.py --transport``; new backends register with
+:func:`register_transport` and are built by name via
+:func:`build_transport`.
 
 A copy of the JAX package's ``repro/runtime/transport_base.py`` (numpy)
-with its imports rewritten. The ``"sim"``, ``"vector_sim"`` and
-``"super_sim"`` backends are ported; ``"socket"`` is named in
-:data:`UNPORTED_TRANSPORTS`.
+with its imports rewritten.
 """
 from __future__ import annotations
 
@@ -416,22 +415,18 @@ class Transport:
             tr.kd_bytes = float(sum(tr.bytes_by_round[:kd]))
 
 
-#: reference backends the port does not have yet, with the ROADMAP.md
-#: item that brings each one
-UNPORTED_TRANSPORTS = {
-    "socket": "Queue 1 item 14 (runtime/socket_transport.py)",
-}
-
-
 def available_transports() -> List[str]:
     """Sorted names of every registered transport backend.
 
     Imports the bundled implementations first so the registry is
-    populated (the same lazy import :func:`build_transport` does).
+    populated (the same lazy import :func:`build_transport` does) —
+    CLI validation and error messages use this list, so a newly
+    registered backend shows up everywhere without edits.
     """
     # importing the implementations registers them; lazy to avoid the
     # transport_base <-> network import cycle
-    from repro_torch.runtime import (network, super_network,  # noqa: F401
+    from repro_torch.runtime import (network,  # noqa: F401
+                                     socket_transport, super_network,
                                      vector_network)
     return sorted(TRANSPORTS)
 
@@ -447,14 +442,11 @@ def build_transport(name: str, n_peers: int, *,
     segment ops (the large-N engine, byte-exact and time-equal vs
     ``"sim"``); ``"super_sim"`` — the superpeer hybrid engine (closed
     forms for intra-cluster rounds, the vector engine for the rest;
-    byte-exact always, time-equal on per-peer link profiles). The
-    reference's ``"socket"`` raises ``NotImplementedError`` naming the
-    ROADMAP.md item that ports it.
+    byte-exact always, time-equal on per-peer link profiles);
+    ``"socket"`` — real asyncio tasks over loopback TCP (or, with an
+    ``address_book=``/``rank=``, one rank of a multi-process world on
+    fixed host:port endpoints).
     """
-    if name in UNPORTED_TRANSPORTS:
-        raise NotImplementedError(
-            f"transport {name!r} is not ported yet "
-            f"(ROADMAP.md, {UNPORTED_TRANSPORTS[name]})")
     names = available_transports()
     if name not in TRANSPORTS:
         raise ValueError(f"unknown transport {name!r}; "

@@ -272,8 +272,14 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [("transport", "socket")])
 def test_unported_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        FederationConfig(n_peers=8, **{field: value})
+    """Once refused (Queue 1 item 14), the socket transport now runs: one
+    step over loopback TCP bills the sim's bytes and moves real ones."""
+    fed = Federation(FederationConfig(n_peers=8, **{field: value}),
+                     device="cpu")
+    state = fed.step(fed.init_state())
+    assert state.iteration == 1 and fed.network.name == "socket"
+    assert fed.comm_bytes == fed.last_transcript.total_bytes > 0
+    assert fed.last_transcript.payload_bytes == fed.comm_bytes
 
 
 @pytest.mark.parametrize("field,value", [
@@ -374,3 +380,19 @@ def test_port_imports_with_jax_and_repro_blocked():
                               "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("rates", [(0.7, 0.2), (0.05, 0.0), (0.5, 0.99)])
+def test_sample_masks_match_reference(rates):
+    """The legacy mask API draws the reference's masks from one numpy
+    generator, including the at-least-one-peer fallbacks."""
+    kw = dict(n_peers=8, participation_rate=rates[0],
+              dropout_rate=rates[1])
+    fed = Federation(FederationConfig(**kw), device="cpu")
+    ref = RefFederation(RefConfig(**kw))
+    rng, ref_rng = np.random.default_rng(5), np.random.default_rng(5)
+    for _ in range(20):
+        got, want = fed.sample_masks(rng), ref.sample_masks(ref_rng)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.float32
+            np.testing.assert_array_equal(g, w)

@@ -176,7 +176,14 @@ def test_engine_transcripts_equal_sim_and_the_references(engine, technique,
 
 
 def test_every_engine_of_the_reference_but_socket_is_registered():
-    assert available_transports() == ["sim", "super_sim", "vector_sim"]
+    """Every engine of the reference, the socket included since it was
+    ported, is registered: the same names as the reference's registry."""
+    from repro.runtime.transport_base import \
+        available_transports as ref_available_transports
+
+    assert available_transports() == ["sim", "socket", "super_sim",
+                                      "vector_sim"]
+    assert available_transports() == ref_available_transports()
 
 
 @pytest.mark.parametrize("n", [8, 16, 27, 36, 64, 125])

@@ -304,3 +304,49 @@ def test_layer_views_share_storage(f32_pair):
     view = T.layer(params["blocks"], 2)
     assert view["attn"]["wq"].data_ptr() == \
         params["blocks"]["attn"]["wq"][2].data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# the reference's remaining public names: attention_block, init_shape,
+# cache_shape
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_attention_block_matches_reference(f32_pair, attn_impl):
+    from repro.models import layers as ref_layers
+
+    from repro_torch.models import layers
+
+    _, ref_params, model, params = f32_pair
+    ref_cfg, cfg = _cfgs(attn_impl=attn_impl)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 24, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(24, dtype=np.int32), (2, 24))
+    layer = jax.tree.map(lambda a: a[0], ref_params["blocks"]["attn"])
+    want = ref_layers.attention_block(layer, jnp.asarray(x), ref_cfg,
+                                      jnp.asarray(pos))
+    got = layers.attention_block(
+        {k: v[0] for k, v in params["blocks"]["attn"].items()},
+        torch.from_numpy(x), cfg, torch.from_numpy(pos.copy()))
+    _close(got, want)
+
+
+def _shapes(tree, leaves):
+    return [(tuple(x.shape), str(x.dtype).removeprefix("torch."))
+            for x in leaves(tree)]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_and_cache_shapes_are_the_references(arch):
+    """Every published config: the meta-device parameter and decode
+    cache trees have the reference's ``eval_shape`` shapes and dtypes,
+    leaf for leaf, and allocate nothing."""
+    from repro.configs.registry import get_config as ref_get_config
+
+    from repro_torch.tree import tree_leaves
+
+    ref, model = RefModel(ref_get_config(arch)), Model(get_config(arch))
+    for got, want in ((model.init_shape(), ref.init_shape()),
+                      (model.cache_shape(2, 64), ref.cache_shape(2, 64))):
+        assert all(x.device.type == "meta" for x in tree_leaves(got))
+        assert _shapes(got, tree_leaves) == _shapes(want, jax.tree.leaves)

@@ -11,14 +11,16 @@
 * ``--ckpt-dir`` then ``--resume`` with another ``--peers`` restores
   elastically; the large-N flags (``--adaptive-m``, ``--placement``,
   ``--transport vector_sim | super_sim``) give the reference's regroup
-  and comm-total lines at 16 peers; the unported flags raise naming
-  their ROADMAP.md item; without ``--device`` the trainer raises where
-  there is no CUDA.
+  and comm-total lines at 16 peers; the socket transport's flags
+  (``--transport socket``, ``--peer-hosts``, ``--rank``) give the
+  reference's line per rank; without ``--device`` the trainer raises
+  where there is no CUDA.
 """
 import contextlib
 import io
 import json
 import math
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
@@ -28,6 +30,7 @@ from repro.launch import train as ref_train
 
 from repro_torch.configs import ARCH_IDS
 from repro_torch.launch import train
+from repro_torch.runtime.socket_transport import AddressBook
 from test_torch_federation import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -106,15 +109,52 @@ def test_checkpoint_then_elastic_resume(tmp_path):
     assert meta["n_peers"] == 2 and meta["grid_dims"] == [2]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--transport", "socket"], "Queue 1 item 14"),
-    (["--peer-hosts", "book.json"], "Queue 1 item 14"),
-    (["--rank", "1"], "Queue 1 item 14"),
+def _socket_ranks(argv, book, ranks, timeout_s=120.0):
+    """Run ``ranks`` of a socket world, one thread each, sharing one
+    captured stdout; returns it. Each thread's wait is bounded."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), ThreadPoolExecutor(len(ranks)) \
+            as ex:
+        futures = [ex.submit(train.main, [*argv, "--peer-hosts", book,
+                                          "--rank", str(r)])
+                   for r in ranks]
+        assert [f.result(timeout=timeout_s) for f in futures] == \
+            [0] * len(ranks)
+    return buf.getvalue()
+
+
+# the ids are those of the tests that held these flags refused (Queue 1
+# item 14), so each case keeps its name
+@pytest.mark.parametrize("world_size", [
+    pytest.param(0, id="flags0-Queue 1 item 14"),     # --transport socket
+    pytest.param(1, id="flags1-Queue 1 item 14"),     # --peer-hosts
+    pytest.param(2, id="flags2-Queue 1 item 14"),     # --rank
 ])
-def test_unported_flags_name_their_item(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(["--arch", "starcoder2-3b", "--smoke", "--device", "cpu",
-                    *flags])
+def test_unported_flags_name_their_item(monkeypatch, tmp_path, world_size):
+    """The flags of the socket transport, once refused, run the smoke
+    trainer over loopback TCP: in one process (``--transport socket``),
+    as the only rank of an address book (``--peer-hosts``), and as rank
+    1 of a two-rank book beside rank 0 (``--rank``). Each rank's
+    comm-total line is the reference's, wall-clock seconds masked: the
+    whole ledger for one rank, the nodes' receptions for each of two."""
+    cs = _chip_smoke(monkeypatch)
+    argv = ["--arch", "starcoder2-3b", *cs.TRAIN_CLI_BASE, "--device",
+            "cpu", "--transport", "socket"]
+    if world_size == 0:
+        out = _run(train.main, argv)
+        want = [cs.TRAIN_CLI_COMM["starcoder2-3b socket"]]
+    else:
+        book = str(tmp_path / "book.json")
+        AddressBook.loopback(4, world_size=world_size).to_json(book)
+        out = _socket_ranks(argv, book, range(world_size))
+        want = ([cs.TRAIN_CLI_COMM["starcoder2-3b socket"]]
+                if world_size == 1 else cs.TRAIN_CLI_RANKS["starcoder2-3b"])
+        for r in range(world_size):
+            assert f"over {world_size} ranks; this is rank {r}" in out
+    got = [cs.wall_masked(ln) for ln in out.splitlines()
+           if ln.startswith("[train] comm total=")]
+    assert sorted(got) == sorted(want)
+    assert "[wall-clock]" in got[0]
 
 
 @pytest.mark.parametrize("case", ["adaptive_m", "placement", "vector_sim",

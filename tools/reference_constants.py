@@ -4,7 +4,8 @@
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python3 tools/reference_constants.py \
         [extensions] [figures] [train_cli] [train_chip] [large_n]
-        [train_recurrent] [train_cli_large_n]
+        [train_recurrent] [train_cli_large_n] [figures_ext] [socket]
+        [train_cli_ranks]
 
 For each protocol extension of the quickstart
 (``repro_torch.quickstart.EXTENSIONS``: 27 peers, text task, two local
@@ -30,7 +31,19 @@ clustered placement at N = 64, 20 iterations): the ledger by source,
 the accuracy at iteration 20 for seeds 0-2; the full-width zamba2-2.7b
 and xlstm-350m trainer ledgers (``TRAIN_RECURRENT``, 4 peers, 6 steps);
 and the regroup and comm-total lines of the trainer's large-N CLI cases
-(``TRAIN_CLI_LARGE_N``). Needs jax; takes several minutes.
+(``TRAIN_CLI_LARGE_N``). Then Figs. 8 and 11
+(``benchmarks/fig{8_noniid,11_approx_agg}.py``) at the smoke scale for
+seeds 0-2: each row's fields at seed 0 and the largest spread of a
+row's accuracy over the seeds. Then the quickstart over the socket
+transport under injected loss (``SOCKET_LOSSY``, 20 iterations): each
+iteration's lost senders, the ledger by source and ``comm_bytes`` at
+seed 0, and the accuracy at 20 for seeds 0-2 (the socket's loss draws
+depend only on the seed and the iteration). Last, the comm-total line
+of each rank of the trainer's two-rank socket world
+(``TRAIN_CLI_BASE`` plus ``--transport socket --peer-hosts BOOK --rank
+R``, two processes on a loopback book). Wall-clock seconds print as
+``comm_s=<wall>`` (``chip_smoke.wall_masked``). Needs jax; takes
+several minutes.
 """
 from __future__ import annotations
 
@@ -42,9 +55,12 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent.parent
 SMOKE = dict(peers=8, iters=6, eval_every=3, local_batches=1)
 FIGS = ("fig1_perf_gap", "fig2_mkd", "fig3_churn", "fig4_dp", "fig5_parity")
+FIGS_EXT = ("fig8_noniid", "fig11_approx_agg")
 #: the archs of the LM trainer's CLI cases (chip_smoke.TRAIN_CLI_CASES)
 TRAIN_CLI_ARCHS = ("starcoder2-3b", "musicgen-medium")
 #: the chip's full-width run: chip_smoke.py's train phase (TRAIN_ARGS)
@@ -75,9 +91,9 @@ def extension_runs(iterations: int = 20) -> None:
         print(json.dumps(out), flush=True)
 
 
-def _rows(seed: int):
+def _rows(seed: int, figs=FIGS):
     rows = []
-    for f in FIGS:
+    for f in figs:
         mod = importlib.import_module("benchmarks." + f)
         mod.scale = lambda full, smoke=False: dict(SMOKE)
         buf = io.StringIO()
@@ -106,10 +122,23 @@ def figure_rows() -> None:
         flush=True)
 
 
+def figures_ext_rows() -> None:
+    runs = [_rows(seed, FIGS_EXT) for seed in (0, 1, 2)]
+    spread = max(
+        max(accs) - min(accs) for accs in (
+            [float(f["final_acc"]) for _, f in by_seed]
+            for by_seed in zip(*runs) if "final_acc" in by_seed[0][1]))
+    print(json.dumps({"figures_ext_rows": runs[0],
+                      "max_accuracy_spread": spread}), flush=True)
+
+
 def comm_line(out: str) -> str:
-    """The ``[train] comm total=...`` line of a trainer's output."""
-    return next(ln for ln in out.splitlines()
-                if ln.startswith("[train] comm total="))
+    """The ``[train] comm total=...`` line of a trainer's output, its
+    wall-clock seconds masked."""
+    from chip_smoke import wall_masked
+
+    return wall_masked(next(ln for ln in out.splitlines()
+                            if ln.startswith("[train] comm total=")))
 
 
 def train_cli_lines() -> None:
@@ -214,6 +243,61 @@ def train_cli_large_n_lines() -> None:
     print(json.dumps({"train_cli_large_n": lines}), flush=True)
 
 
+def socket_runs(iterations: int = 20) -> None:
+    from chip_smoke import SOCKET_LOSSY
+    from repro.core.federation import Federation, FederationConfig
+
+    from repro_torch.quickstart import quickstart_config
+
+    base = {f.name: getattr(quickstart_config(), f.name)
+            for f in dataclasses.fields(quickstart_config())}
+    base["pallas_group_mean"] = base.pop("kernel_group_mean")
+    out = {"run": "socket_lossy", "accuracy_by_seed": []}
+    for seed in (0, 1, 2):
+        fed = Federation(FederationConfig(**{**base, **SOCKET_LOSSY,
+                                             "seed": seed}))
+        state = fed.init_state()
+        lost = []       # each iteration's lost senders as a bit mask
+        for _ in range(iterations):
+            state = fed.step(state)
+            lost.append(sum(1 << int(i) for i in np.flatnonzero(
+                fed.last_transcript.lost_senders)))
+        out["accuracy_by_seed"].append(fed.evaluate(state))
+        if seed == 0:
+            out.update(comm_bytes=fed.comm_bytes,
+                       by_source=dict(fed.ledger.by_source),
+                       lost_senders=lost)
+    print(json.dumps(out), flush=True)
+
+
+def train_cli_rank_lines(arch: str = "starcoder2-3b") -> None:
+    """The reference's two-rank socket trainer: two processes on one
+    loopback book, each printing its rank's comm-total line."""
+    import os
+    import subprocess
+    import tempfile
+
+    from chip_smoke import TRAIN_CLI_BASE
+    from repro.runtime.socket_transport import AddressBook
+
+    with tempfile.TemporaryDirectory() as tmp:
+        book = os.path.join(tmp, "book.json")
+        AddressBook.loopback(4, world_size=2).to_json(book)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   JAX_PLATFORMS="cpu")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro.launch.train", "--arch", arch,
+             *TRAIN_CLI_BASE, "--transport", "socket", "--peer-hosts", book,
+             "--rank", str(r)], env=env, stdout=subprocess.PIPE, text=True)
+            for r in (0, 1)]
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"a rank failed: {[p.returncode for p in procs]}")
+    print(json.dumps({"train_cli_ranks": {arch: [comm_line(o)
+                                                 for o in outs]}}),
+          flush=True)
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
@@ -224,7 +308,10 @@ def main() -> None:
                      ("train_chip", train_chip_bytes),
                      ("large_n", large_n_runs),
                      ("train_recurrent", train_recurrent_bytes),
-                     ("train_cli_large_n", train_cli_large_n_lines)):
+                     ("train_cli_large_n", train_cli_large_n_lines),
+                     ("figures_ext", figures_ext_rows),
+                     ("socket", socket_runs),
+                     ("train_cli_ranks", train_cli_rank_lines)):
         if not only or name in only:
             fn()
 
