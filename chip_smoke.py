@@ -232,12 +232,36 @@ Phases, each printing JSON lines:
                 f32: 3 steps on the card and on the CPU from one
                 theta^0, losses and theta within 1e-4, 96 SSD-scan
                 launches on the card.
+   train_mesh — the multi-rank device backend. (a) musicgen-medium at
+                full width with the train phase's traffic (4 peers on
+                (2, 2), batch 2 of 128, seed 0) for TRAIN_MESH_STEPS
+                steps through ``make_fl_train_step`` on a state laid out
+                as DTensors by the sharding rules on a one-rank NCCL
+                ``DeviceMesh`` (data=1, model=1): after each step theta
+                and m equal the train phase's bit for bit (per-leaf,
+                per-peer digests: the sums of the bit patterns and of
+                their squares, mod 2^64, recorded by the train phase's
+                ``on_step``), finite losses, 384 flash launches a step,
+                the reference's ledger for 3 steps, the peak under
+                80 GB; ms a step beside the train phase's. (b) two
+                processes on the one card, meeting over gloo (NCCL
+                refuses two ranks on one card): musicgen's smoke config
+                in f32, 2 peers a rank on (2, 2), so round 0 crosses
+                ranks and round 1 is local; theta and m within 1e-6 of
+                the unsharded step on the same inputs, round 0 one
+                all_reduce over 2 ranks, round 1 none, ``one_shot`` one
+                over 2. Two processes on one card, not a multi-card
+                result. (c) the roofline line of (a)'s step:
+                ``runtime/op_analysis.py`` over one more, untimed step,
+                the H100 datasheet terms (``runtime/roofline.py``)
+                beside the measured ms.
 17. kernels   — one JSON object per kernel: launches on its main path
                 (the group mean's: the federation run's 60, the
                 extension runs' 427, the smoke figures', the large-N
                 runs' and the socket runs' 120; flash's and the paged
                 kernel's include the moonshot run's, flash's the
-                training runs' and the in-process socket trainer's too,
+                training runs' (train_mesh's too) and the in-process
+                socket trainer's,
                 the SSD scan's the recurrent training runs'), max error,
                 times, bound.
 
@@ -534,6 +558,10 @@ TRAIN_LAYERS = 48
 # microbatches are 1
 TRAIN_FLASH_PER_STEP = TRAIN_LAYERS * 4 * 2
 TRAIN_TOKENS_PER_STEP = 4 * 2 * 128
+# train_mesh (a): the train phase's first steps again, on a DTensor state
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_COMM_BYTES = TRAIN_COMM_BYTES * TRAIN_MESH_STEPS // 6
+TRAIN_MESH_PEAK_BYTES = 80e9
 
 
 def wall_masked(line: str) -> str:
@@ -2976,7 +3004,31 @@ def _bit_equal_peers(torch, tree_leaves, tree) -> bool:
                for i in range(1, x.shape[0]))
 
 
-def _train_full_width(torch, smi, phase: str, args, expect: dict) -> dict:
+def state_digests(torch, tree_leaves, state) -> list:
+    """Per leaf of theta then m, per peer: the sums of the bit patterns
+    and of their squares, mod 2^64 (exact, so in any order), taken in
+    blocks so no leaf-sized int64 copy is made. Equal states give equal
+    digests."""
+    out = []
+    for x in tree_leaves(state["params"]) + tree_leaves(state["momentum"]):
+        if hasattr(x, "to_local"):
+            x = x.to_local()
+        bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+        for i in range(x.shape[0]):
+            flat = x[i].reshape(-1).view(bits)
+            s1 = torch.zeros((), dtype=torch.int64, device=x.device)
+            s2 = torch.zeros((), dtype=torch.int64, device=x.device)
+            for c0 in range(0, flat.numel(), 1 << 26):
+                b = flat[c0:c0 + (1 << 26)].long()
+                s1 += b.sum()
+                s2 += (b * b).sum()
+                del b
+            out.append((int(s1), int(s2)))
+    return out
+
+
+def _train_full_width(torch, smi, phase: str, args, expect: dict,
+                      record=None) -> dict:
     """One full-width run of ``launch.train.main`` in process (``args``:
     its command line), the state updated in place. After every step
     every peer's theta and m are bit-equal (full participation over
@@ -2985,6 +3037,9 @@ def _train_full_width(torch, smi, phase: str, args, expect: dict) -> dict:
     ledger is ``expect["comm_bytes"]``; the peak is under the card's
     memory. Then one more step under ``torch.profiler`` (with the SSD
     scan's plain backward under its own label where the scan runs).
+    With ``record`` (a dict), the state's digests after each of the
+    first TRAIN_MESH_STEPS steps go to ``record["digests"]`` and the
+    median ms a step to ``record["median_ms"]``, for train_mesh.
     Returns the main path's launch counts."""
     import gc
 
@@ -3011,6 +3066,9 @@ def _train_full_width(torch, smi, phase: str, args, expect: dict) -> dict:
                       and _bit_equal_peers(torch, tree_leaves,
                                            state["momentum"])})
         emit(f"{phase}_step", **steps[-1])
+        if record is not None and info["t"] < TRAIN_MESH_STEPS:
+            record.setdefault("digests", []).append(
+                state_digests(torch, tree_leaves, state))
         if info["t"] + 1 < n_steps:
             return
         # the main path ends here: read its counts before the extra step
@@ -3078,12 +3136,14 @@ def _train_full_width(torch, smi, phase: str, args, expect: dict) -> dict:
                                                 seen["params_per_peer"]),
           f"{phase} {arch}: {seen['params_per_peer']} parameters a peer, "
           f"expected {expect.get('params')}")
+    if record is not None:
+        record["median_ms"] = med
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_train(torch, smi):
+def phase_train(torch, smi, record=None):
     """musicgen-medium at full width through the port's trainer: 48
     layers, d 1536, 24 MHA heads of 64, gated FFN 6144, vocab 2048,
     bf16; 4 peers on the (2, 2) grid, each a materialized copy of
@@ -3101,7 +3161,7 @@ def phase_train(torch, smi):
           f"unexpected config {cfg}")
     return _train_full_width(torch, smi, "train", TRAIN_ARGS, {
         "flash_attention": TRAIN_FLASH_PER_STEP, "ssd_scan": 0,
-        "comm_bytes": TRAIN_COMM_BYTES})
+        "comm_bytes": TRAIN_COMM_BYTES}, record)
 
 
 def phase_train_recurrent(torch, smi):
@@ -3297,6 +3357,273 @@ def phase_train_recurrent_parity(torch):
                                   f"{n} SSD-scan launches, expected 96")
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _mesh_state(torch, model, n_peers: int, mesh, cfg, device: str,
+                rules: bool = True):
+    """``init_fl_state`` from seed 0 as DTensors on ``mesh``: laid out by
+    the sharding rules (peers over "data", TP over "model"), or with
+    ``rules=False`` the peer dim split over "data" and nothing else
+    (several peers a rank, which the rules give only with one peer a
+    rank)."""
+    from repro_torch.core.fl_device import init_fl_state
+    from repro_torch.runtime.sharding import (NamedSharding, make_shard_plan,
+                                              shard_tree, state_shardings)
+    from repro_torch.tree import tree_map
+
+    plain = init_fl_state(model, n_peers, seed=0, device=device)
+    pm = {"params": plain["params"], "momentum": plain["momentum"]}
+    if rules:
+        sh = state_shardings(pm, make_shard_plan(mesh, ("data",)),
+                             head_dim=cfg.head_dim, num_heads=cfg.num_heads,
+                             num_kv_heads=cfg.num_kv_heads)
+    else:
+        sh = tree_map(lambda x: NamedSharding(
+            mesh, ("data",) + (None,) * (x.dim() - 1)), pm)
+    state = shard_tree(pm, sh)
+    state["step"] = plain["step"]
+    return state
+
+
+def _train_mesh_full_width(torch, smi, record: dict) -> dict:
+    """(a) and (c) of train_mesh on a one-rank NCCL world. Returns the
+    flash launches of the TRAIN_MESH_STEPS steps."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import topology
+    from repro_torch.core.aggregation import CommLedger, build_pipeline
+    from repro_torch.core.fl_device import make_fl_train_step
+    from repro_torch.core.moshpit import plan_grid
+    from repro_torch.data.synthetic import lm_token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.runtime import roofline
+    from repro_torch.runtime.op_analysis import OpAnalysis
+    from repro_torch.tree import tree_leaves
+
+    args = train._parser().parse_args(list(TRAIN_ARGS))
+    cfg = get_config(args.arch)
+    model = Model(cfg)
+    n = args.peers
+    grid = plan_grid(n)
+    check(grid.dims == (2, 2), f"train_mesh: grid {grid.dims}")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device_type="cuda")
+        pipeline = build_pipeline("mar", grid, backend="device")
+        step = make_fl_train_step(model, grid, lr=args.lr,
+                                  pipeline=pipeline)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = _mesh_state(torch, model, n, mesh, cfg, "cuda")
+        leaf = tree_leaves(state["params"])[0]
+        check(type(leaf).__name__ == "DTensor"
+              and leaf.device_mesh is mesh, "train_mesh: not DTensors")
+        stream = lm_token_stream(cfg.vocab_size, n * args.local_steps
+                                 * args.batch, args.seq, seed=args.seed)
+        ledger = CommLedger()
+        peer_bytes = (topology.pytree_bytes(state["params"])
+                      + topology.pytree_bytes(state["momentum"])) // n
+        steps = []
+        ops.reset_launch_counts()
+        for t in range(TRAIN_MESH_STEPS):
+            batch = {k: v.reshape(n, args.local_steps, 1, args.batch,
+                                  args.seq) for k, v in next(stream).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            pipeline.record_iteration(ledger, n, peer_bytes)
+            same = state_digests(torch, tree_leaves, state) \
+                == record["digests"][t]
+            steps.append({"step": t + 1, "loss": loss, "ms": ms,
+                          "bit_equal_to_train": same})
+            emit("train_mesh_step", **steps[-1])
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(st["ms"] for st in steps[1:])
+        emit("train_mesh", what="(a) musicgen-medium, the train phase's "
+             "traffic, state as DTensors on a one-rank NCCL DeviceMesh",
+             mesh={"shape": list(mesh.shape),
+                   "names": list(mesh.mesh_dim_names)},
+             losses=[st["loss"] for st in steps],
+             median_ms_steps_2_3=med, train_median_ms=record["median_ms"],
+             launches=launches, comm_total_bytes=ledger.total_bytes,
+             peak_memory_bytes=peak, peak_gb=peak / 1e9, card=smi)
+        check(all(st["bit_equal_to_train"] for st in steps),
+              "train_mesh (a): theta or m differ from the train phase's "
+              f"after a step: {[st['bit_equal_to_train'] for st in steps]}")
+        check(all(math.isfinite(st["loss"]) for st in steps),
+              f"train_mesh (a): a loss is not finite: {steps}")
+        check(launches["flash_attention"]
+              == TRAIN_FLASH_PER_STEP * TRAIN_MESH_STEPS,
+              f"train_mesh (a): {launches['flash_attention']} flash "
+              f"launches, expected {TRAIN_FLASH_PER_STEP} a step")
+        check(ledger.total_bytes == TRAIN_MESH_COMM_BYTES,
+              f"train_mesh (a): ledger {ledger.total_bytes} != the "
+              f"reference's {TRAIN_MESH_COMM_BYTES}")
+        check(peak < TRAIN_MESH_PEAK_BYTES,
+              f"train_mesh (a): peak {peak} bytes >= 80 GB")
+
+        # (c): one more step, untimed, under the op analysis
+        batch = {k: v.reshape(n, args.local_steps, 1, args.batch, args.seq)
+                 for k, v in next(stream).items()}
+        with OpAnalysis() as analysis:
+            step(state, batch)
+        torch.cuda.synchronize()
+        args_bytes = sum(x.numel() * x.element_size() for x in
+                         tree_leaves(state["params"])
+                         + tree_leaves(state["momentum"]))
+        shape = type("Shape", (), {"global_batch": n * args.batch,
+                                   "seq_len": args.seq})
+        rep = roofline.analyze(
+            analysis.analyze(),
+            roofline.memory_dict(args_bytes, peak - args_bytes),
+            arch=args.arch, shape=f"train b={n * args.batch} s={args.seq}",
+            mesh="one-rank-1x1", chips=1,
+            model_flops=roofline.model_flops_estimate(cfg, shape, "train"))
+        r = rep.to_dict()
+        emit("train_mesh_roofline", what="(c) op_analysis of one more "
+             "step of (a); H100 SXM5 datasheet peaks; the hand-written "
+             "kernels (ctypes) are not counted",
+             flops=r["hlo_flops_per_chip"], bytes=r["hlo_bytes_per_chip"],
+             collective_bytes=r["collective_bytes_per_chip"],
+             compute_s=r["compute_s"], memory_s=r["memory_s"],
+             collective_s=r["collective_s"], dominant=r["dominant"],
+             roofline_ms=r["step_time_s"] * 1e3, measured_ms=med,
+             roofline_share=r["step_time_s"] * 1e3 / med,
+             model_flops=r["model_flops"],
+             useful_flops_fraction=r["useful_flops_fraction"],
+             hbm_fraction=r["memory_per_chip"]["hbm_fraction"], card=smi)
+        check(r["hlo_flops_per_chip"] > 0 and r["hlo_bytes_per_chip"] > 0,
+              "train_mesh (c): the analysis counted nothing")
+        del state, step, analysis
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_rank(rank: int, port: int, out_dir: str) -> None:
+    """(b) of train_mesh, one of two ranks on the one card (gloo)."""
+    import dataclasses
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=120))
+    try:
+        import numpy as np
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.core import mar_allreduce as mar
+        from repro_torch.core.fl_device import (init_fl_state,
+                                                make_fl_train_step)
+        from repro_torch.core.moshpit import plan_grid
+        from repro_torch.models.model import Model
+        from repro_torch.runtime.op_analysis import OpAnalysis
+        from repro_torch.tree import tree_leaves
+
+        torch.cuda.set_device(0)
+        cfg = dataclasses.replace(get_smoke_config("musicgen-medium"),
+                                  dtype="float32")
+        model = Model(cfg)
+        grid = plan_grid(4)
+        mesh = DeviceMesh("cuda", torch.arange(2), mesh_dim_names=("data",))
+        rng = np.random.default_rng(3)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (4, 1, 1, 2, 32)))
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+        step = make_fl_train_step(model, grid, lr=0.05)
+        ref, ref_m = step(init_fl_state(model, 4, seed=0, device="cuda"),
+                          batch)
+        state = _mesh_state(torch, model, 4, mesh, cfg, "cuda", rules=False)
+        state, metrics = step(state, batch)
+        first = mar.peer_layout(tree_leaves(state["params"])[0]).first
+        err = {}
+        for key in ("params", "momentum"):
+            err[key] = max(float((x.to_local().float()
+                                  - y[first:first + 2].float())
+                                 .abs().max())
+                           for x, y in zip(tree_leaves(state[key]),
+                                           tree_leaves(ref[key])))
+        agg = {"p": state["params"], "m": state["momentum"]}
+        seen = {}
+        for name, fn in (
+                ("round0", lambda: mar.mar_round_device(agg, grid, 0)),
+                ("round1", lambda: mar.mar_round_device(agg, grid, 1)),
+                ("one_shot", lambda: mar.mar_aggregate_device(
+                    agg, grid, one_shot=True))):
+            with OpAnalysis() as a:
+                fn()
+            torch.cuda.synchronize()
+            seen[name] = a.collectives
+        out = {"rank": rank, "peers": [first, first + 2],
+               "theta_err": err["params"], "m_err": err["momentum"],
+               "loss": float(metrics["loss"]), "ref_loss": float(ref_m[
+                   "loss"]), "collectives": seen,
+               "local_shape": list(tree_leaves(
+                   state["params"])[0].to_local().shape)}
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_mesh(torch, smi, record: dict) -> dict:
+    """train_mesh (a), (b) and (c); returns (a)'s launch counts."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    launches = _train_mesh_full_width(torch, smi, record)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_mesh_rank, args=(_free_port(), tmp), nprocs=2, join=True)
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    emit("train_mesh_two_ranks", what="(b) two processes on the one card "
+         "over gloo, musicgen-medium smoke config in f32, 2 peers a rank "
+         "on (2, 2); not a multi-card result", ranks=ranks,
+         run_s=time.perf_counter() - t0, card=smi)
+    for r in ranks:
+        check(r["theta_err"] <= 1e-6 and r["m_err"] <= 1e-6,
+              f"train_mesh (b) rank {r['rank']}: theta {r['theta_err']}, "
+              f"m {r['m_err']} from the unsharded step")
+        check(abs(r["loss"] - r["ref_loss"]) <= 1e-6,
+              f"train_mesh (b) rank {r['rank']}: loss {r['loss']} vs "
+              f"{r['ref_loss']}")
+        sizes = {k: [(op, g) for op, _, g in v]
+                 for k, v in r["collectives"].items()}
+        check(sizes == {"round0": [("all-reduce", 2)], "round1": [],
+                        "one_shot": [("all-reduce", 2)]},
+              f"train_mesh (b) rank {r['rank']}: collectives {sizes}")
+    return launches
+
+
 def ptxas_summary(report: dict, sources) -> list:
     """Registers, spill bytes and static shared memory of every kernel
     the named sources compiled, read from nvcc's ``-Xptxas -v`` log
@@ -3407,10 +3734,12 @@ def main() -> None:
     moe_launches = phase_serve_moe(torch, smi)
     phase_serve_moe_parity(torch)
     phase_checkpoint(torch)
-    train_launches = phase_train(torch, smi)
+    train_record = {}
+    train_launches = phase_train(torch, smi, train_record)
     recurrent_train_launches = phase_train_recurrent(torch, smi)
     phase_train_parity(torch)
     phase_train_recurrent_parity(torch)
+    mesh_launches = phase_train_mesh(torch, smi, train_record)
 
     # group_mean: the round row of the main path (the quickstart's theta
     # and m, N=27, round 0, one launch), its error the largest over the
@@ -3420,10 +3749,10 @@ def main() -> None:
     # their first (bf16, serving-path) row; ssd_scan: its first (zamba2,
     # bf16) row. Launches: each path's count, read right after it ran,
     # summed over the paths a kernel lies on (flash: starcoder2, zamba2
-    # and moonshot prefills, the musicgen and zamba2 training steps and
-    # the in-process socket trainer's steps; paged:
-    # starcoder2 and moonshot decode steps; ssd_scan: the zamba2 and
-    # xlstm prefills and training steps)
+    # and moonshot prefills, the musicgen and zamba2 training steps, the
+    # musicgen steps on a DTensor state (train_mesh) and the in-process
+    # socket trainer's steps; paged: starcoder2 and moonshot decode
+    # steps; ssd_scan: the zamba2 and xlstm prefills and training steps)
     qs = [r for r in round_rows if r["kind"] == "quickstart"]
     print(json.dumps({"kernels": [
         {**kernel_entry("group_mean",
@@ -3440,7 +3769,7 @@ def main() -> None:
                      + moe_launches["flash_attention"]
                      + train_launches["flash_attention"]
                      + recurrent_train_launches["flash_attention"]
-                     + socket_flash,
+                     + mesh_launches["flash_attention"] + socket_flash,
                      flash_rows[0]),
         kernel_entry("paged_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -1,12 +1,19 @@
 """Device-backend MAR-FL: the paper's protocol on the LM architectures,
 every peer stacked on one card.
 
-Port of the JAX package's ``repro/core/fl_device.py`` as the reference
-runs it on a single device: every state leaf carries a leading peer
-axis ``[P, ...]``, and each MAR round is a masked mean over one axis of
-the grid reshape (``core/mar_allreduce.mar_round_device``). The
-multi-rank form (a peer per rank of a device mesh) is ROADMAP.md, Queue
-1 item 18.
+Port of the JAX package's ``repro/core/fl_device.py``: every state leaf
+carries a leading peer axis ``[P, ...]``, and each MAR round is a
+masked mean over one axis of the grid reshape
+(``core/mar_allreduce.mar_round_device``). The state may lie on one
+card as plain tensors, or on a device mesh as DTensors laid out by
+``runtime/sharding.py``: the peer dim sharded over the peer mesh axes
+(a contiguous block of peers a rank), the other dims over the TP and
+FSDP axes. On a mesh each rank runs the local update of its own peers
+on its own shards: a peer's TP/FSDP-sharded leaves are gathered when
+the loss uses them, and the rank writes back only its shard of theta
+and m. The MAR rounds then cross ranks only on the grid axes the peer
+mesh axes carry, and the ``loss`` metric is all-reduced to the mean
+over all peers.
 
 One FL iteration (Alg. 1, device form):
 
@@ -41,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
+from repro_torch.core import mar_allreduce as mar
 from repro_torch.core.aggregation import AggregationPipeline, MarAggregator
 from repro_torch.core.moshpit import GridPlan
 from repro_torch.core.replan import (MembershipChange, resize_peer_axis,
@@ -200,28 +208,38 @@ def make_fl_train_step(model: Model, grid: GridPlan, lr: float = 0.1,
             comm_dtype=comm_dtype))
 
     def peer_local_update(p: List[torch.Tensor], m: List[torch.Tensor],
-                          like: Tree, peer_batch: Dict[str, torch.Tensor]
+                          like: Tree, peer_batch: Dict[str, torch.Tensor],
+                          shards: Optional[List["_LeafShards"]] = None
                           ) -> torch.Tensor:
         """One peer: B sequential Momentum-SGD steps, writing ``p`` and
-        ``m`` in place. Returns the mean loss over the steps."""
+        ``m`` in place. Returns the mean loss over the steps. With
+        ``shards`` (a sharded state), ``p`` and ``m`` are this rank's
+        shards: the loss reads the gathered leaves, and each update
+        takes this rank's part of the gradient."""
         n_steps, n_micro = peer_batch["tokens"].shape[:2]
         dev = p[0].device
         losses = []
         for b in range(n_steps):
             gsum: List[Optional[torch.Tensor]] = [None] * len(p)
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            # the peer's whole leaves, gathered once a local step
+            full = p if shards is None else [
+                s.full(x) for s, x in zip(shards, p)]
             for u in range(n_micro):
                 mb = {k: v[b, u].to(dev) for k, v in peer_batch.items()}
-                leaves = [x.detach().requires_grad_() for x in p]
+                leaves = [x.detach().requires_grad_() for x in full]
                 loss = model.loss(tree_unflatten(like, leaves), mb)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
                 del leaves
                 for j, g in enumerate(grads):
                     if g is None:        # unused (e.g. frontend_norm
                         continue         # without prefix embeddings): 0
+                    if shards is not None:
+                        g = shards[j].own(g)
                     gsum[j] = g.float() if gsum[j] is None else gsum[j] + g
                 del grads
                 lsum = lsum + loss.detach().float()
+            del full
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             for j, (pj, mj) in enumerate(zip(p, m)):
                 g = zero if gsum[j] is None else gsum[j] / n_micro
@@ -243,19 +261,33 @@ def make_fl_train_step(model: Model, grid: GridPlan, lr: float = 0.1,
         n, dev = p_leaves[0].shape[0], p_leaves[0].device
         keep = ([True] * n if mask is None
                 else (torch.as_tensor(mask) > 0).tolist())
-        like = tree_map(lambda x: x[0], params)
+        sharded = mar.is_sharded(p_leaves[0])
+        if sharded and aggregate and pipeline.stages:
+            raise ValueError("wire stages run on a state on one card; a "
+                             "sharded state aggregates through plain MAR")
+        if sharded:
+            # this rank's peers, on its shards of their leaves
+            lay = mar.state_layout(p_leaves + m_leaves)
+            shards = [_LeafShards(x) for x in p_leaves]
+            p_loc = [x.to_local() for x in p_leaves]
+            m_loc = [x.to_local() for x in m_leaves]
+            first, n_local, like = lay.first, lay.n_local, params
+        else:
+            shards, p_loc, m_loc, first, n_local = None, p_leaves, \
+                m_leaves, 0, n
+            like = tree_map(lambda x: x[0], params)
         peer_losses = []
         with record_function(SPAN_LOCAL):
-            for i in range(n):
-                p_i = [x[i] for x in p_leaves]
-                m_i = [x[i] for x in m_leaves]
-                if not keep[i]:
+            for i in range(n_local):
+                p_i = [x[i] for x in p_loc]
+                m_i = [x[i] for x in m_loc]
+                if not keep[first + i]:
                     # U_t = 0: computed for the loss metric, then dropped
                     p_i = [x.clone() for x in p_i]
                     m_i = [x.clone() for x in m_i]
-                peer_batch = {k: v[i] for k, v in batch.items()}
+                peer_batch = {k: v[first + i] for k, v in batch.items()}
                 peer_losses.append(
-                    peer_local_update(p_i, m_i, like, peer_batch))
+                    peer_local_update(p_i, m_i, like, peer_batch, shards))
                 del p_i, m_i
         state["step"] = state["step"] + 1
         if aggregate:
@@ -269,7 +301,7 @@ def make_fl_train_step(model: Model, grid: GridPlan, lr: float = 0.1,
                                 device=dev) if a is None
                      else torch.as_tensor(a).to(dev, torch.float32))
                 gen = generator
-                if gen is None:
+                if gen is None and pipeline.stages:
                     gen = torch.Generator(device=dev).manual_seed(
                         int(state["step"]) - 1)
                 agg_state = {"p": params, "m": momentum}
@@ -284,9 +316,73 @@ def make_fl_train_step(model: Model, grid: GridPlan, lr: float = 0.1,
                 del out
                 if "pipe" in state:
                     state["pipe"] = pipe
+        if sharded:
+            return state, {"loss": _mean_over_peers(peer_losses, lay)}
         return state, {"loss": torch.stack(peer_losses).mean()}
 
     return fl_train_step
+
+
+class _LeafShards:
+    """One peer's slice of a DTensor leaf: how to gather the full tensor
+    from this rank's shard over the non-peer mesh dims, and which part
+    of a full-size tensor is this rank's shard."""
+
+    def __init__(self, x):
+        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+
+        mesh = x.device_mesh
+        names = mesh.mesh_dim_names
+        rest = [i for i, pl in enumerate(x.placements)
+                if not (isinstance(pl, Shard) and pl.dim == 0)]
+        self.shape = tuple(x.shape[1:])
+        self.stride = torch.empty(self.shape, device="meta").stride()
+        self.placements = [Shard(pl.dim - 1) if isinstance(pl, Shard)
+                           else pl for pl in (x.placements[i]
+                                              for i in rest)]
+        self.split = any(isinstance(pl, Shard) for pl in self.placements)
+        self.slices = []
+        if self.split:
+            if names is None:
+                raise ValueError("a leaf sharded inside a peer needs a "
+                                 "mesh with named dims")
+            self.mesh = mesh[tuple(names[i] for i in rest)]
+            local, offset = compute_local_shape_and_global_offset(
+                self.shape, self.mesh, self.placements)
+            self.slices = [(d, o, n) for d, (o, n, full) in
+                           enumerate(zip(offset, local, self.shape))
+                           if n != full]
+
+    def full(self, shard: torch.Tensor) -> torch.Tensor:
+        """The peer's whole leaf from this rank's ``shard`` of it."""
+        if not self.split:
+            return shard
+        from torch.distributed.tensor import DTensor
+
+        with torch.no_grad():
+            return DTensor.from_local(
+                shard, self.mesh, self.placements, run_check=False,
+                shape=self.shape, stride=self.stride).full_tensor()
+
+    def own(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a full-size tensor of the leaf's shape."""
+        for d, o, n in self.slices:
+            full = full.narrow(d, o, n)
+        return full
+
+
+def _mean_over_peers(peer_losses, lay) -> torch.Tensor:
+    """Mean over all P peers of the per-peer losses, from this rank's
+    own peers: one all_reduce over the peer ranks."""
+    import torch.distributed as dist
+
+    total = torch.stack(peer_losses).sum()
+    group = mar.peer_group(lay, (lay.n_peers,), 0)
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    return total / lay.n_peers
 
 
 # ---------------------------------------------------------------------------

@@ -8,13 +8,19 @@ MAR round is a masked mean over that axis within the round's groups.
   and virtual grid slots (capacity > N).
 * device backend (``mar_round_device``): the reference's grid reshape
   ``[P, ...] -> [*dims, ...]`` and a masked mean over the round's axis,
-  for exact grids (capacity == N) with every peer on one card. It writes
-  each leaf in place, one block of columns at a time, so only one
-  block's temporaries are alive: at full width the old and new state
-  would not fit together. ``comm_dtype`` sets the dtype of the
-  cross-peer sum (the wire format); ``one_shot`` is one global masked
-  mean. The multi-rank form (a peer per rank, each round a collective
-  over per-round process groups) is ROADMAP.md, Queue 1 item 18.
+  for exact grids (capacity == N). It writes each leaf in place, one
+  block of columns at a time, so only one block's temporaries are
+  alive: at full width the old and new state would not fit together.
+  ``comm_dtype`` sets the dtype of the cross-peer sum (the wire
+  format); ``one_shot`` is one global masked mean. When the leaves are
+  DTensors whose peer dim is sharded over mesh dims (the peers spread
+  over ranks, a contiguous block of peers a rank), a round takes each
+  rank's masked partial sums over its own peers, then one
+  ``all_reduce(SUM)`` per bucket of blocks over the ranks whose grid
+  coordinates differ only on the round's axis (the rank grid's mesh
+  dim, ``peer_group``); a grid axis that lies inside one rank issues no
+  collective. The counts come from the replicated mask, so only the
+  sums cross. On one rank this is the single-card backend, bit for bit.
 
 Churn semantics (paper §3.1): a dropped peer contributes neither to the
 numerator nor to the denominator of its group mean, but *receives* the
@@ -32,7 +38,7 @@ Pallas kernel there and no kernel here.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -289,6 +295,14 @@ def _grid_reshape_mean(x: torch.Tensor, dims: Sequence[int], axis: int,
     return out.to(x.dtype).reshape(x.shape)
 
 
+def _blocks(x: torch.Tensor) -> List[torch.Tensor]:
+    """``x`` ([L, ...], contiguous) as column blocks of its ``[L, -1]``
+    view, each at most ``DEVICE_BLOCK_ELEMS`` elements."""
+    flat = x.view(x.shape[0], -1)
+    cols = max(1, DEVICE_BLOCK_ELEMS // x.shape[0])
+    return [flat[:, c0:c0 + cols] for c0 in range(0, flat.shape[1], cols)]
+
+
 def _mean_into_(x: torch.Tensor, dims: Sequence[int], axis: int,
                 mask: torch.Tensor, comm_dtype) -> None:
     """Write :func:`_grid_reshape_mean` of ``x`` into ``x``, one block of
@@ -297,11 +311,179 @@ def _mean_into_(x: torch.Tensor, dims: Sequence[int], axis: int,
     if not x.is_contiguous() or x.dim() < 2:
         x.copy_(_grid_reshape_mean(x, dims, axis, mask, comm_dtype))
         return
-    flat = x.view(x.shape[0], -1)
-    cols = max(1, DEVICE_BLOCK_ELEMS // x.shape[0])
-    for c0 in range(0, flat.shape[1], cols):
-        blk = flat[:, c0:c0 + cols]
+    for blk in _blocks(x):
         blk.copy_(_grid_reshape_mean(blk, dims, axis, mask, comm_dtype))
+
+
+# ---------------------------------------------------------------------------
+# device backend over ranks (DTensor leaves, the peer dim sharded)
+# ---------------------------------------------------------------------------
+
+class PeerLayout(NamedTuple):
+    """How a DTensor leaf spreads its peer dim (dim 0) over ranks."""
+    mesh: object                 # the leaf's DeviceMesh
+    peer_dims: Tuple[int, ...]   # mesh dims that shard dim 0, in order
+    n_peers: int                 # P, the global peer count
+    n_local: int                 # peers on this rank (a contiguous block)
+    first: int                   # global index of this rank's first peer
+
+
+def is_sharded(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def peer_layout(x) -> PeerLayout:
+    """The peer layout of DTensor ``x``: its peer dim is split evenly
+    over the mesh dims that place ``Shard(0)``, major to minor."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = x.device_mesh
+    peer_dims = tuple(i for i, pl in enumerate(x.placements)
+                      if isinstance(pl, Shard) and pl.dim == 0)
+    ranks = int(np.prod([mesh.size(i) for i in peer_dims]))
+    n = x.shape[0]
+    if n % ranks:
+        raise ValueError(f"{n} peers do not split evenly over {ranks} "
+                         f"ranks")
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(x.shape), mesh, list(x.placements))
+    return PeerLayout(mesh, peer_dims, n, local[0], offset[0])
+
+
+def state_layout(leaves) -> PeerLayout:
+    """The one peer layout every leaf of a sharded state shares."""
+    lay = peer_layout(leaves[0])
+    for x in leaves[1:]:
+        other = peer_layout(x)
+        if other.mesh is not lay.mesh and other.mesh != lay.mesh \
+                or other[1:] != lay[1:]:
+            raise ValueError("the state's leaves spread their peers over "
+                             "ranks in different ways")
+    return lay
+
+
+def split_grid(dims: Sequence[int], n_local: int
+               ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(local_dims, rank_dims) with ``dims[a] == local_dims[a] *
+    rank_dims[a]``: a rank's contiguous block of ``n_local`` peers (row
+    major over ``dims``) is a full sub-grid of the trailing axes, split
+    on at most one axis; ranks are row major over ``rank_dims``."""
+    local = [1] * len(dims)
+    rest = n_local
+    for a in range(len(dims) - 1, -1, -1):
+        if rest == 1:
+            break
+        if rest >= dims[a]:
+            if rest % dims[a]:
+                raise ValueError(f"{n_local} peers a rank do not tile the "
+                                 f"grid {tuple(dims)}")
+            local[a] = dims[a]
+            rest //= dims[a]
+        else:
+            if dims[a] % rest:
+                raise ValueError(f"{n_local} peers a rank do not tile the "
+                                 f"grid {tuple(dims)}")
+            local[a] = rest
+            rest = 1
+    return tuple(local), tuple(d // m for d, m in zip(dims, local))
+
+
+_RANK_MESHES = "_mar_rank_meshes"
+
+
+def peer_group(lay: PeerLayout, dims: Sequence[int], axis: int):
+    """The process group of the ranks whose coordinates on the rank grid
+    of ``dims`` differ only on ``axis`` (and that hold the same shard of
+    the non-peer mesh dims); None when the axis lies inside one rank.
+
+    The ranks are laid out as a ``DeviceMesh`` of shape (non-peer ranks,
+    *rank grid axes of size > 1*), whose mesh dims are exactly the
+    rounds' groups; it is built once per (mesh, grid) and kept on the
+    state's mesh, whose lifetime it shares."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    _, rank_dims = split_grid(dims, lay.n_local)
+    if rank_dims[axis] == 1:
+        return None
+    key = (lay.peer_dims, tuple(rank_dims))
+    cache = lay.mesh.__dict__.setdefault(_RANK_MESHES, {})
+    if key not in cache:
+        mesh = lay.mesh
+        rest = [i for i in range(mesh.ndim) if i not in lay.peer_dims]
+        crossing = [a for a, r in enumerate(rank_dims) if r > 1]
+        ranks = mesh.mesh.permute(*rest, *lay.peer_dims).reshape(
+            -1, *[rank_dims[a] for a in crossing])
+        names = ("rest",) + tuple(f"round{a}" for a in crossing)
+        cache[key] = DeviceMesh(mesh.device_type, ranks,
+                                mesh_dim_names=names)
+    return cache[key].get_group(f"round{axis}")
+
+
+#: elements of the sums one collective carries: a round's blocks are
+#: packed into buckets of this size, so a leaf costs a bounded number of
+#: collectives, and small leaves share one
+RANK_BUCKET_ELEMS = DEVICE_BLOCK_ELEMS
+
+
+def _rank_round(leaves, dims: Sequence[int], axis: int,
+                mask: torch.Tensor, comm_dtype) -> None:
+    """One round (grid ``dims``, axis ``axis``) over DTensor ``leaves``,
+    in place in each rank's local shards."""
+    import torch.distributed as dist
+
+    lay = state_layout(leaves)
+    local_dims, _ = split_grid(dims, lay.n_local)
+    mine = slice(lay.first, lay.first + lay.n_local)
+    m_loc = mask[mine]
+    locs = [x.to_local() for x in leaves]
+    group = peer_group(lay, dims, axis)
+    if group is None:                    # the round lies inside the rank
+        for x in locs:
+            _mean_into_(x, local_dims, axis, m_loc, comm_dtype)
+        return
+    acc = _acc_dtype(comm_dtype)
+    # each local peer's group count, from the replicated mask: [*local
+    # grid with the round's axis 1, 1]
+    mg = mask.float().reshape(tuple(dims))
+    den = mg.sum(dim=axis, keepdim=True).expand(tuple(dims)).reshape(-1)
+    den = den[mine].reshape(local_dims).narrow(axis, 0, 1).unsqueeze(-1)
+    mgl = m_loc.reshape(local_dims + (1,)).to(acc)
+    work = [(x, x if x.is_contiguous() else x.contiguous()) for x in locs]
+    pieces = [blk for _, c in work for blk in _blocks(c)]
+    total = sum(b.numel() // local_dims[axis] for b in pieces)
+    buf = torch.empty(min(total, RANK_BUCKET_ELEMS), dtype=acc,
+                      device=m_loc.device)
+    pending: List[Tuple[torch.Tensor, int]] = []
+    used = 0
+
+    def flush():
+        dist.all_reduce(buf[:used], group=group)
+        for blk, off in pending:
+            xg = blk.reshape(local_dims + (blk.shape[1],))
+            shape = den.shape[:-1] + (blk.shape[1],)
+            num = buf[off:off + int(np.prod(shape))].view(shape).float()
+            blk.copy_(finalize_masked_mean(num, den, xg)
+                      .to(blk.dtype).reshape(blk.shape))
+        pending.clear()
+
+    for blk in pieces:
+        xg = blk.reshape(local_dims + (blk.shape[1],))
+        num = (xg.to(acc) * mgl).sum(dim=axis, keepdim=True)
+        if used + num.numel() > buf.numel():
+            flush()
+            used = 0
+        buf[used:used + num.numel()].copy_(num.reshape(-1))
+        pending.append((blk, used))
+        used += num.numel()
+        del num
+    if pending:
+        flush()
+    for x, c in work:
+        if c is not x:
+            x.copy_(c)
 
 
 def mar_round_device(state: Tree, plan: GridPlan, rnd: int,
@@ -311,11 +493,17 @@ def mar_round_device(state: Tree, plan: GridPlan, rnd: int,
     leaves (each ``[P, ...]`` with P == plan.capacity); returns
     ``state``. The reshape ``[P, ...] -> [*dims, ...]`` puts the round's
     groups on grid axis ``rnd``; the masked mean over that axis is the
-    round (the paper's partial communication)."""
+    round (the paper's partial communication). DTensor leaves whose
+    peers are spread over ranks take the round over ranks
+    (``_rank_round``)."""
     assert plan.capacity == plan.n_peers, "device backend needs exact grids"
     if mask is None:
         mask = _ones_mask(state)
-    for x in tree_leaves(state):
+    leaves = tree_leaves(state)
+    if is_sharded(leaves[0]):
+        _rank_round(leaves, plan.dims, rnd, mask, comm_dtype)
+        return state
+    for x in leaves:
         _mean_into_(x, plan.dims, rnd, mask, comm_dtype)
     return state
 
@@ -335,7 +523,11 @@ def mar_aggregate_device(state: Tree, plan: GridPlan,
             "device backend needs exact grids"
         if mask is None:
             mask = _ones_mask(state)
-        for x in tree_leaves(state):
+        leaves = tree_leaves(state)
+        if is_sharded(leaves[0]):
+            _rank_round(leaves, (plan.capacity,), 0, mask, comm_dtype)
+            return state
+        for x in leaves:
             _mean_into_(x, (plan.capacity,), 0, mask, comm_dtype)
         return state
     for g in range(plan.depth):

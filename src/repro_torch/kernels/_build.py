@@ -29,6 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+#: devices whose tensors take a wrapper's plain version: the CPU, and
+#: ``meta`` (shapes only, for the dry run); a CUDA tensor launches the
+#: kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

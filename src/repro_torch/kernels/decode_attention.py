@@ -15,7 +15,7 @@ kernel only from its benchmarks and tests); it is the dense-cache form
 of the paged kernel on the serving path.
 
 :func:`decode_attention_fwd` dispatches on where the tensors lie: CPU
-tensors go to the plain :func:`~repro_torch.kernels.ref.
+(and ``meta``) tensors go to the plain :func:`~repro_torch.kernels.ref.
 decode_attention_ref`; CUDA tensors launch the kernel or raise — there
 is no fallback. ``launches`` counts the kernel launches (one per call).
 """
@@ -183,7 +183,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
     """q [b,h,d]; caches [b,S,kvh,d]; lengths [b] int32 -> [b,h,d]."""
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return decode_attention_ref(q, k_cache, v_cache, lengths)
     _build.refuse_autograd("decode_attention", (q, k_cache, v_cache))
     check_device(q, k_cache, v_cache, lengths)

@@ -13,7 +13,7 @@ the JAX package's ``repro/kernels/flash_attention.py``; the source's
 header gives its bound and design.
 
 :func:`flash_attention_fwd` dispatches on where the tensors lie: CPU
-tensors go to the plain :func:`~repro_torch.kernels.ref.
+(and ``meta``) tensors go to the plain :func:`~repro_torch.kernels.ref.
 flash_attention_ref`; CUDA tensors launch the kernel or raise — there is
 no fallback. ``launches`` counts the kernel launches.
 """
@@ -100,7 +100,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [b,s,h,d]; k,v [b,skv,kvh,d] -> (o [b,s,h,d] in q's dtype,
     lse [b,h,s] f32)."""
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return flash_attention_ref(q, k, v, causal)
     # models.attention_flash.FlashAttention gives it a backward (its
     # forward runs with grad off); a bare call under autograd refuses

@@ -20,11 +20,11 @@ Two entries, one kernel:
 - :func:`group_mean_fwd` — the reference's ``[G, M, D]`` entry: one
   leaf, identity order.
 
-Each dispatches on where the tensors lie: CPU tensors go to the plain
-version in :mod:`~repro_torch.kernels.ref`; CUDA tensors launch the
-kernel or raise — there is no fallback. ``launches`` counts the kernel
-launches of both entries, so a run can show that its main path went
-through the kernel.
+Each dispatches on where the tensors lie: CPU (and ``meta``) tensors go
+to the plain version in :mod:`~repro_torch.kernels.ref`; CUDA tensors
+launch the kernel or raise — there is no fallback. ``launches`` counts
+the kernel launches of both entries, so a run can show that its main
+path went through the kernel.
 """
 from __future__ import annotations
 
@@ -193,7 +193,8 @@ def group_mean_round(xs: Sequence[torch.Tensor], order: torch.Tensor,
     whose mask sums to 0 keeps its own rows. Returns fresh ``[n, d]``
     tensors; the inputs are not written."""
     global launches
-    if all(t.device.type == "cpu" for t in (mask, order, *xs)):
+    kinds = {t.device.type for t in (mask, order, *xs)}
+    if len(kinds) == 1 and kinds <= set(_build.PLAIN_DEVICES):
         return group_mean_round_ref(xs, order, mask, m)
     _build.refuse_autograd("group_mean", (mask, *xs))
     validate_round(xs, order, mask, m)
@@ -221,7 +222,7 @@ def group_mean_fwd(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """x [G, M, D]; mask [G, M] -> [G, M, D] (each slot gets its group's
     masked mean; fully-dropped groups keep their own values)."""
     global launches
-    if x.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES:
         return group_mean_ref(x, mask)
     _build.refuse_autograd("group_mean", (x, mask))
     validate(x, mask)

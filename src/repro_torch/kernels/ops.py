@@ -2,7 +2,8 @@
 
 Each checks its shapes as the JAX package's ``repro/kernels/ops.py``
 does, then calls the kernel module, which runs the plain PyTorch
-version for CPU tensors and the Hopper kernel for CUDA tensors.
+version for CPU and ``meta`` tensors and the Hopper kernel for CUDA
+tensors.
 """
 from __future__ import annotations
 

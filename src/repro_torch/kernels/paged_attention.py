@@ -14,9 +14,10 @@ kernel ``paged_decode_attention_fwd`` of the JAX package's
 bound and design.
 
 :func:`paged_decode_attention_fwd` dispatches on where the tensors lie:
-CPU tensors go to the plain :func:`gather_dense_decode`; CUDA tensors
-launch the kernel or raise — there is no fallback. ``launches`` counts
-the kernel launches (one per call: the splits merge inside it).
+CPU (and ``meta``) tensors go to the plain :func:`gather_dense_decode`;
+CUDA tensors launch the kernel or raise — there is no fallback.
+``launches`` counts the kernel launches (one per call: the splits merge
+inside it).
 """
 from __future__ import annotations
 
@@ -88,7 +89,7 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     lengths [b] int32 -> [b,h,d]. Table entries must name pages of the
     pool (the kernel reads them unchecked)."""
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return gather_dense_decode(q, k_pages, v_pages, block_tables,
                                    lengths)
     _build.refuse_autograd("paged_decode_attention",

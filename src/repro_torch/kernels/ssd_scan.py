@@ -31,9 +31,13 @@ never copied; only a tensor whose last axis is not contiguous is.
 :func:`check_layout` states what each entry takes; every ssm and hybrid
 config's scan inputs pass it.
 
-:func:`ssd_scan_fwd` dispatches on where the tensors lie: CPU tensors go
-to the plain :func:`~repro_torch.kernels.ref.ssd_scan_ref`, which
-autograd differentiates; CUDA tensors go through :class:`_SsdScanFn`,
+:func:`ssd_scan_fwd` dispatches on where the tensors lie: CPU tensors
+go to the plain :func:`~repro_torch.kernels.ref.ssd_scan_ref`, which
+autograd differentiates; ``meta`` tensors (the dry run, shapes only) to
+the plain chunked form :func:`~repro_torch.kernels.ref.
+chunked_linear_scan`, which computes the same function in S/256 steps
+where the sequential scan takes S; CUDA tensors go through
+:class:`_SsdScanFn`,
 whose forward launches the kernel or raises — there is no fallback —
 and whose backward is the plain
 :func:`~repro_torch.kernels.ref.ssd_scan_bwd`: the Pallas kernel has no
@@ -50,7 +54,8 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_scan_bwd, ssd_scan_ref
+from repro_torch.kernels.ref import (chunked_linear_scan, ssd_scan_bwd,
+                                     ssd_scan_ref)
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -187,6 +192,8 @@ def ssd_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q,k [b,nh,S,dk]; v [b,nh,S,dv]; log_a [b,nh,S]; h0 [b,nh,dk,dv]
     -> (y [b,nh,S,dv] in v's dtype, h_final [b,nh,dk,dv] f32)."""
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
+        if q.device.type == "meta":
+            return chunked_linear_scan(q, k, v, log_a, h0)
         return ssd_scan_ref(q, k, v, log_a, h0)
     return _SsdScanFn.apply(q, k, v, log_a, h0)

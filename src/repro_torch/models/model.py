@@ -10,19 +10,20 @@ and raises where there is no GPU. Caches are made on the device the
 caller names (the serving engine passes its parameters' device).
 ``init_shape`` and ``cache_shape`` lay their trees out on the ``meta``
 device (shapes and dtypes, no storage), where the reference returns
-``jax.eval_shape``'s ShapeDtypeStructs. ``batch_specs`` and
-``input_specs`` wait for the dry-run tooling (ROADMAP.md, Queue 1 item
-15).
+``jax.eval_shape``'s ShapeDtypeStructs; ``batch_specs`` and
+``input_specs`` give the dry run (``launch/dryrun.py``) every input of
+a step the same way.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as T
+from repro_torch.models.transformer import PREFIX_LEN
 from repro_torch.tree import Tree
 
 Device = Union[None, str, torch.device]
@@ -109,3 +110,64 @@ class Model:
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return T.paged_decode_step(params, pages, block_tables, pos, token,
                                    self.cfg)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors; the dry run never allocates)
+# ---------------------------------------------------------------------------
+
+def _meta(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                n_peers: int = 1, local_steps: int = 1,
+                n_micro: int = 1) -> Dict[str, torch.Tensor]:
+    """Train or prefill batch stand-ins on the ``meta`` device.
+
+    Train batches carry the FL structure [n_peers, local_steps, n_micro,
+    micro_batch, seq]: B local Momentum-SGD steps per peer (Alg. 1), each
+    accumulating over n_micro microbatches.
+    """
+    gb, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        if gb % (n_peers * local_steps * n_micro):
+            raise ValueError(f"global batch {gb} does not split into "
+                             f"{n_peers} peers x {local_steps} steps x "
+                             f"{n_micro} microbatches")
+        mb = gb // (n_peers * local_steps * n_micro)
+        lead = (n_peers, local_steps, n_micro, mb)
+    else:  # prefill: flat per-request batch
+        lead = (gb,)
+    s_text = s
+    specs = {}
+    if cfg.frontend != "none":
+        p = PREFIX_LEN[cfg.frontend]
+        s_text = s - p
+        specs["prefix_embeds"] = _meta(lead + (p, cfg.d_model),
+                                       torch.float32)
+    specs["tokens"] = _meta(lead + (s_text,), torch.int32)
+    if shape.kind == "train":
+        specs["labels"] = _meta(lead + (s_text,), torch.int32)
+    return specs
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, n_peers: int = 1,
+                local_steps: int = 1, n_micro: int = 1) -> Dict[str, Any]:
+    """Every input of one (arch x shape) cell's step, on ``meta``.
+
+    * train   -> {"batch": ...} for ``fl_train_step`` (the state comes
+                 from ``fl_device.fl_state_shape``)
+    * prefill -> {"batch": ...} for ``prefill_step``
+    * decode / long_decode -> {"token": [b], "cache": ...} for
+      ``serve_step``; the cache covers ``seq_len`` of history (window and
+      state caches of the hybrid and ssm families are O(window) / O(1)).
+    """
+    if shape.kind == "train":
+        return {"batch": batch_specs(cfg, shape, n_peers, local_steps,
+                                     n_micro)}
+    if shape.kind == "prefill":
+        return {"batch": batch_specs(cfg, shape)}
+    b = shape.global_batch
+    return {"token": _meta((b,), torch.int32),
+            "cache": Model(cfg).cache_shape(b, shape.seq_len)}

@@ -75,11 +75,18 @@ def router_probs(params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor,
     return top / top.sum(dim=-1, keepdim=True), idx
 
 
+def _expert_counts(ids: Tensor, num_experts: int) -> Tensor:
+    """Assignments per expert (``bincount``, which has no ``meta``
+    kernel for the dry run; integer adds, exact in any order)."""
+    return torch.zeros(num_experts, dtype=ids.dtype,
+                       device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def load_balance_loss(params, x: Tensor, cfg: ModelConfig) -> Tensor:
     """Switch-style aux loss: E * sum(fraction_tokens * fraction_prob)."""
     probs, _, idx = _route(params, x, cfg)
-    counts = torch.bincount(idx.reshape(-1),
-                            minlength=cfg.num_experts).float()
+    counts = _expert_counts(idx.reshape(-1), cfg.num_experts).float()
     f = counts / torch.clamp(counts.sum(), min=1.0)
     return cfg.num_experts * torch.sum(f * probs.mean(dim=0))
 
@@ -107,7 +114,7 @@ def moe_block(params, x: Tensor, cfg: ModelConfig) -> Tensor:
     order = torch.argsort(e_flat, stable=True)
     e_sort = e_flat[order]
     t_sort = order // k                                   # token of each
-    counts = torch.bincount(e_flat, minlength=e)
+    counts = _expert_counts(e_flat, e)
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(t * k, device=dev) - starts[e_sort]
     keep = slot < cap

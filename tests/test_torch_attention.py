@@ -272,9 +272,15 @@ def test_cpu_paths_are_plain_and_count_no_launch():
                                    "ssd_scan": 0}
 
 
-def test_non_cpu_tensors_never_fall_back():
+def test_non_cpu_tensors_never_fall_back(monkeypatch):
     """A tensor that is not on the CPU goes to a kernel or raises; meta
-    tensors (no data, no CUDA) must raise, not take the plain path."""
+    tensors (no data, no CUDA) must raise, not take the plain path, once
+    ``meta`` is taken off ``_build.PLAIN_DEVICES`` (where it stands for
+    the dry run, which computes shapes only)."""
+    o, _ = fa.flash_attention_fwd(*(torch.empty(1, 8, h, 16, device="meta")
+                                    for h in (4, 2, 2)))
+    assert (o.device.type, o.shape) == ("meta", (1, 8, 4, 16))
+    monkeypatch.setattr(_build, "PLAIN_DEVICES", ("cpu",))
     meta = dict(device="meta")
     q4, kv4 = torch.empty(1, 8, 4, 16, **meta), torch.empty(1, 8, 2, 16,
                                                             **meta)

@@ -43,8 +43,9 @@ from repro_torch.core import fl_device, mar_allreduce
 from repro_torch.core.aggregation import build_pipeline
 from repro_torch.core.moshpit import GridPlan, plan_grid
 from repro_torch.core.replan import plan_membership_change
-from repro_torch.kernels import (decode_attention, flash_attention,
-                                 group_mean, paged_attention, ssd_scan)
+from repro_torch.kernels import (_build, decode_attention,
+                                 flash_attention, group_mean,
+                                 paged_attention, ssd_scan)
 from repro_torch.models.model import Model
 from repro_torch.tree import tree_leaves
 from test_torch_federation import one_torch_thread  # noqa: F401
@@ -377,15 +378,19 @@ GUARDED = {
 
 
 @pytest.mark.parametrize("kernel", sorted(GUARDED))
-def test_forward_only_wrappers_refuse_autograd_off_the_cpu(kernel):
-    """Off the CPU (here the meta device, which takes the same branch as
-    CUDA) a wrapper whose kernel has no backward raises
+def test_forward_only_wrappers_refuse_autograd_off_the_cpu(kernel,
+                                                          monkeypatch):
+    """Off the CPU (here the meta device, taken off
+    ``_build.PLAIN_DEVICES`` so that it takes the same branch as CUDA;
+    the dry run runs the plain versions on it) a wrapper whose kernel
+    has no backward raises
     ``NotImplementedError`` under autograd before it validates or
     launches, instead of returning a tensor without a ``grad_fn``;
     without autograd it goes on to its checks (which refuse a non-CUDA
     device). The SSD scan has a backward (``_SsdScanFn``, the plain
     VJP): under autograd its Function is entered and reaches the same
     validation, which refuses the non-CUDA device."""
+    monkeypatch.setattr(_build, "PLAIN_DEVICES", ("cpu",))
     if kernel == "ssd_scan":
         with pytest.raises(ValueError, match="one CUDA device"):
             GUARDED[kernel](True)

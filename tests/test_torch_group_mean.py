@@ -91,11 +91,15 @@ def test_ops_keeps_the_reference_shape_check():
         ops.group_mean(torch.zeros(2, 3, 4), torch.ones(3))
 
 
-def test_non_cpu_tensor_never_falls_back():
+def test_non_cpu_tensor_never_falls_back(monkeypatch):
     """A tensor that is not on the CPU goes to the kernel or raises; a
-    meta tensor (no data, no CUDA) must raise, not take the plain path."""
+    meta tensor (no data, no CUDA) must raise, not take the plain path,
+    once ``meta`` is taken off ``_build.PLAIN_DEVICES`` (where it stands
+    for the dry run, which computes shapes only)."""
     x = torch.empty(2, 3, 4, device="meta")
     mask = torch.empty(2, 3, device="meta")
+    assert gm.group_mean_fwd(x, mask).device.type == "meta"
+    monkeypatch.setattr(_build, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="CUDA device"):
         gm.group_mean_fwd(x, mask)
 
@@ -234,16 +238,23 @@ def test_round_plain_with_identity_order_is_the_gmd_entry(dtype):
 
 
 @pytest.mark.parametrize("where", ["all_meta", "mask_meta"])
-def test_round_non_cpu_tensor_never_falls_back(where):
+def test_round_non_cpu_tensor_never_falls_back(where, monkeypatch):
     """A round whose tensors are not all on the CPU goes to the kernel or
     raises; meta tensors (no data, no CUDA) must raise, not take the
-    plain path."""
+    plain path. A round all on ``meta`` takes the plain version (shapes
+    only, for the dry run) until ``meta`` is taken off
+    ``_build.PLAIN_DEVICES``; a mask on ``meta`` beside leaves on the
+    CPU always raises."""
     xs, order, mask, m = _round_args()
     if where == "all_meta":
         xs = [x.to("meta") for x in xs]
         order = order.to("meta")
     mask = mask.to("meta")
     before = gm.launches
+    if where == "all_meta":
+        ys = gm.group_mean_round(xs, order, mask, m)
+        assert all(y.device.type == "meta" for y in ys)
+        monkeypatch.setattr(_build, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="CUDA device"):
         gm.group_mean_round(xs, order, mask, m)
     assert gm.launches == before

@@ -181,9 +181,17 @@ def test_cpu_path_is_plain_and_counts_no_launch():
     assert ops.launch_counts()["ssd_scan"] == 0
 
 
-def test_non_cpu_tensors_never_fall_back():
+def test_non_cpu_tensors_never_fall_back(monkeypatch):
+    """Off the CPU the scan goes to the kernel or raises; ``meta`` takes
+    the plain version (shapes only, for the dry run) until it is taken
+    off ``_build.PLAIN_DEVICES``."""
     meta = dict(device="meta")
     q = torch.empty(1, 2, 8, 16, **meta)
+    y, _ = ss.ssd_scan_fwd(q, q, torch.empty(1, 2, 8, 4, **meta),
+                           torch.empty(1, 2, 8, **meta),
+                           torch.empty(1, 2, 16, 4, **meta))
+    assert (y.device.type, y.shape) == ("meta", (1, 2, 8, 4))
+    monkeypatch.setattr(_build, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="CUDA device"):
         ss.ssd_scan_fwd(q, q, torch.empty(1, 2, 8, 4, **meta),
                         torch.empty(1, 2, 8, **meta),
