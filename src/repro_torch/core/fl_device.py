@@ -35,7 +35,15 @@ step holds the old and the new state together; at full width
 (musicgen-medium, 4 peers: 14.5 GB of bf16 theta and 29.1 GB of f32
 momentum) that would not fit on an 80 GB card. The two halves of the
 step carry ``torch.profiler`` labels, ``train.local_update`` and
-``train.aggregate``.
+``train.aggregate``; inside the first, each micro-batch's
+``train.local_update.forward`` (the batch's move to the device and the
+loss) and ``train.local_update.backward`` (``torch.autograd.grad`` and
+the gradients' f32 sum), and each local step's
+``train.local_update.optimizer`` (the SGDM update, leaf by leaf). They
+cover the local update but for the loss metric's set-up, ``stack`` and
+``mean``. The backward's own labels come from the model:
+``model.recompute`` (``models/transformer.py``) and
+``flash_attention.backward`` (``models/attention_flash.py``).
 
 ``make_serve_step``, ``make_prefill_step`` and ``make_paged_serve_step``
 cover the inference shapes (no aggregation — MAR is a training-time
@@ -60,6 +68,10 @@ from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 #: profiler labels of the two halves of ``fl_train_step``
 SPAN_LOCAL = "train.local_update"
 SPAN_AGGREGATE = "train.aggregate"
+#: profiler labels of one peer's phases inside ``train.local_update``
+SPAN_FORWARD = "train.local_update.forward"
+SPAN_BACKWARD = "train.local_update.backward"
+SPAN_OPTIMIZER = "train.local_update.optimizer"
 
 
 def init_fl_state(model: Model, n_peers: int, seed: int = 0,
@@ -226,28 +238,33 @@ def make_fl_train_step(model: Model, grid: GridPlan, lr: float = 0.1,
             full = p if shards is None else [
                 s.full(x) for s, x in zip(shards, p)]
             for u in range(n_micro):
-                mb = {k: v[b, u].to(dev) for k, v in peer_batch.items()}
-                leaves = [x.detach().requires_grad_() for x in full]
-                loss = model.loss(tree_unflatten(like, leaves), mb)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-                del leaves
-                for j, g in enumerate(grads):
-                    if g is None:        # unused (e.g. frontend_norm
-                        continue         # without prefix embeddings): 0
-                    if shards is not None:
-                        g = shards[j].own(g)
-                    gsum[j] = g.float() if gsum[j] is None else gsum[j] + g
-                del grads
-                lsum = lsum + loss.detach().float()
+                with record_function(SPAN_FORWARD):
+                    mb = {k: v[b, u].to(dev) for k, v in peer_batch.items()}
+                    leaves = [x.detach().requires_grad_() for x in full]
+                    loss = model.loss(tree_unflatten(like, leaves), mb)
+                    lsum = lsum + loss.detach().float()
+                with record_function(SPAN_BACKWARD):
+                    grads = torch.autograd.grad(loss, leaves,
+                                                allow_unused=True)
+                    del leaves
+                    for j, g in enumerate(grads):
+                        if g is None:    # unused (e.g. frontend_norm
+                            continue     # without prefix embeddings): 0
+                        if shards is not None:
+                            g = shards[j].own(g)
+                        gsum[j] = (g.float() if gsum[j] is None
+                                   else gsum[j] + g)
+                    del grads
             del full
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            for j, (pj, mj) in enumerate(zip(p, m)):
-                g = zero if gsum[j] is None else gsum[j] / n_micro
-                gsum[j] = None
-                new_p, new_m = momentum_sgd_step(pj, mj, g, lr, mu)
-                pj.copy_(new_p)
-                mj.copy_(new_m)
-                del new_p, new_m, g
+            with record_function(SPAN_OPTIMIZER):
+                zero = torch.zeros((), dtype=torch.float32, device=dev)
+                for j, (pj, mj) in enumerate(zip(p, m)):
+                    g = zero if gsum[j] is None else gsum[j] / n_micro
+                    gsum[j] = None
+                    new_p, new_m = momentum_sgd_step(pj, mj, g, lr, mu)
+                    pj.copy_(new_p)
+                    mj.copy_(new_m)
+                    del new_p, new_m, g
             losses.append(lsum / n_micro)
         return torch.stack(losses).mean()
 

@@ -15,7 +15,8 @@ so no [s, s] matrix is kept between forward and backward. The
 reference's backward is plain jnp too, so there is no TPU kernel behind
 it; a Hopper kernel for it is perf work (ROADMAP.md, Queue 2 #2b). As
 in the reference, the gradient is that of o alone: a gradient arriving
-for lse raises.
+for lse raises. The backward runs under the ``torch.profiler`` label
+``flash_attention.backward``.
 
 Shapes: q [b, s, h, d]; k, v [b, skv, kvh, d]; GQA via h = g * kvh.
 """
@@ -25,11 +26,15 @@ import math
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.ref import NEG_INF
 
 Tensor = torch.Tensor
+
+#: profiler label of the plain backward (``FlashAttention.backward``)
+SPAN_BACKWARD = "flash_attention.backward"
 
 
 def _chunks(s: int, target: int) -> int:
@@ -119,8 +124,9 @@ class FlashAttention(torch.autograd.Function):
         if do is None:
             return None, None, None, None, None, None
         causal, q_chunk, kv_chunk = ctx.blocks
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal, q_chunk,
-                               kv_chunk)
+        with record_function(SPAN_BACKWARD):
+            dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal, q_chunk,
+                                   kv_chunk)
         return dq, dk, dv, None, None, None
 
 

@@ -25,14 +25,17 @@ normalized by ``frontend_norm`` and prepended, and logits come for the
 token positions only; decoding stays token-only. ``cfg.remat ==
 "block"`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) on the
-blocks the reference wraps.
+blocks the reference wraps; each recompute carries the
+``torch.profiler`` label ``model.recompute``, the forward's run none.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -50,6 +53,9 @@ DENSE_FAMILIES = ("dense", "vlm", "audio", "moe")
 RECURRENT_FAMILIES = ("ssm", "hybrid")
 #: prefix positions of each modality frontend's stub embeddings
 PREFIX_LEN = {"vision_patches": 256, "audio_frames": 64}
+#: profiler label of a checkpointed block's second run: the recompute
+#: inside the backward
+SPAN_RECOMPUTE = "model.recompute"
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -60,16 +66,24 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown frontend {cfg.frontend!r}")
 
 
+def _recompute_context() -> Tuple[contextlib.nullcontext, record_function]:
+    """``checkpoint``'s ``context_fn``: nothing around the block's run in
+    the forward, the label ``model.recompute`` around its second run."""
+    return contextlib.nullcontext(), record_function(SPAN_RECOMPUTE)
+
+
 def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
     """``fn`` recomputed in the backward when ``cfg.remat == "block"``
-    and autograd records (the reference's ``jax.checkpoint``)."""
+    and autograd records (the reference's ``jax.checkpoint``); the
+    recompute runs under the profiler label ``model.recompute``."""
     if cfg.remat != "block":
         return fn
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_recompute_context)
     return run
 
 
