@@ -12,7 +12,8 @@ Phases, each printing JSON lines:
                 src/repro_torch/kernels/csrc/, one process per source,
                 all started together; a ``ptxas`` line gives the
                 registers, spill bytes and static shared memory of each
-                group-mean, flash, decode and SSD-scan kernel.
+                group-mean, flash, decode, SSD-scan and MAR-rounds
+                kernel.
 3. group_mean — a launch_floor line first: one 8-element add timed as
                 every row below is, the floor under every small
                 kernel's time. Then the [G, M, D] entry against its
@@ -207,7 +208,7 @@ Phases, each printing JSON lines:
                 ``train.aggregate``). Gates: finite losses, every peer's
                 theta and m bit-equal after each step, flash launched
                 48 layers x 4 peers x 2 (forward and the remat
-                recompute) a step, the ledger the reference's
+                recompute) a step, mar_rounds 26 a step (one a leaf), the ledger the reference's
                 (TRAIN_COMM_BYTES), the peak under the card's memory.
 16. train_parity — starcoder2-3b's and musicgen-medium's smoke configs
                 (prefix embeddings) at 2 layers in f32: 3 steps of
@@ -226,7 +227,8 @@ Phases, each printing JSON lines:
                 chunked scan's VJP (``_SsdScanFn``); the train phase's
                 gates, with 360 SSD-scan and 36 flash launches a zamba2
                 step (the shared attention block is not rematerialized)
-                and 168 SSD-scan launches an xlstm step, and the ledgers
+                and 168 SSD-scan launches an xlstm step, 38 and 32
+                mar_rounds launches a step (one a leaf), and the ledgers
                 of TRAIN_RECURRENT.
    train_recurrent_parity — both families' smoke configs at 2 layers in
                 f32: 3 steps on the card and on the CPU from one
@@ -242,6 +244,8 @@ Phases, each printing JSON lines:
                 per-peer digests: the sums of the bit patterns and of
                 their squares, mod 2^64, recorded by the train phase's
                 ``on_step``), finite losses, 384 flash launches a step,
+                26 mar_rounds launches a step (both rounds lie inside
+                the rank, so a leaf takes them in one launch),
                 the reference's ledger for 3 steps, the peak under
                 80 GB; ms a step beside the train phase's. (b) two
                 processes on the one card, meeting over gloo (NCCL
@@ -262,8 +266,9 @@ Phases, each printing JSON lines:
                 kernel's include the moonshot run's, flash's the
                 training runs' (train_mesh's too) and the in-process
                 socket trainer's,
-                the SSD scan's the recurrent training runs'), max error,
-                times, bound.
+                the SSD scan's the recurrent training runs', the MAR
+                rounds kernel's the training runs' and the in-process
+                socket trainer's), max error, times, bound.
 
 Phase 4 also runs the flash kernel at zamba2's shared-attention shape
 (s=512, h=kvh=32, d=80, bf16), flash and the paged kernel at
@@ -284,7 +289,12 @@ with median times of the path rows (both types) beside the bound. An
 kernel forward, the plain VJP backward) against autograd of the plain
 sequential scan at the trainer's two shapes (b=2, S=128), in bf16 and
 f32, with a nonzero h0 and both cotangents, and prints the forward
-kernel's time beside the plain backward's.
+kernel's time beside the plain backward's. A ``mar_rounds`` phase holds
+the device aggregation's kernel against its plain version at the train
+phase's state (musicgen-medium's theta and m, 4 peers on (2, 2), 43.6
+GB on the card), leaf by leaf under a full mask and one that empties a
+group, bit for bit, and times the whole state's aggregation with the
+kernel and with the plain route, L2 flushed, beside the bytes bound.
 
 Then the card's nvidia-smi line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero before the last line; so does a
@@ -501,9 +511,11 @@ TRAIN_COMM_BYTES = 523_693_817_856
 # here: 2,194,295,840 and 527,905,792)
 TRAIN_RECURRENT = {
     "zamba2-2.7b": dict(params=2_063_209_520, comm_bytes=594_205_378_560,
-                        ssd_per_step=45 * 2 * 4, flash_per_step=9 * 4),
+                        ssd_per_step=45 * 2 * 4, flash_per_step=9 * 4,
+                        mar_rounds_per_step=19 * 2),
     "xlstm-350m": dict(params=518_640_640, comm_bytes=149_704_704_000,
-                       ssd_per_step=21 * 2 * 4, flash_per_step=0),
+                       ssd_per_step=21 * 2 * 4, flash_per_step=0,
+                       mar_rounds_per_step=16 * 2),
 }
 # The federation_large_n runs: the paper's text model under adaptive
 # group sizing at N = 125 on each transport, and clustered placement at
@@ -558,6 +570,9 @@ TRAIN_LAYERS = 48
 # microbatches are 1
 TRAIN_FLASH_PER_STEP = TRAIN_LAYERS * 4 * 2
 TRAIN_TOKENS_PER_STEP = 4 * 2 * 128
+# mar_rounds launches a step: the device aggregation runs every round of
+# a leaf in one launch, one a leaf of theta and one of m
+TRAIN_MAR_ROUNDS_PER_STEP = 13 * 2
 # train_mesh (a): the train phase's first steps again, on a DTensor state
 TRAIN_MESH_STEPS = 3
 TRAIN_MESH_COMM_BYTES = TRAIN_COMM_BYTES * TRAIN_MESH_STEPS // 6
@@ -882,6 +897,122 @@ def phase_group_mean_round(torch, flush):
     return rows
 
 
+def mar_rounds_bound_ms(leaves, rounds: int) -> dict:
+    """Least time for the device MAR aggregation of ``leaves`` ([P, ...]
+    each), the larger of two: every leaf read once and written once
+    however many rounds run, and the mask once, over HBM
+    (``bytes_ms``); a multiply-add and a divide per element and round
+    over the f32 rate (``ops_ms``)."""
+    nbytes = sum(2 * x.numel() * x.element_size() for x in leaves) \
+        + leaves[0].shape[0] * 4
+    flops = 3 * rounds * sum(x.numel() for x in leaves)
+    return {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": flops / F32_FLOP_PER_S * 1e3}
+
+
+def phase_mar_rounds(torch, flush):
+    """The device MAR aggregation of the train phase's state through the
+    in-place rounds kernel: theta (bf16) and m (f32) of 4 peers of
+    musicgen-medium at full width (43.6 GB), random on the card, on the
+    (2, 2) grid. Leaf by leaf, ``mar_rounds_`` (both rounds, one launch)
+    against its plain version (``ref.mar_rounds_ref``, column block by
+    column block) under a full mask and one that empties a group:
+    bit-equal (groups of two). Then the whole state through
+    ``mar_aggregate_device`` with the kernel and with the plain route
+    (``_takes_kernel`` off), L2 flushed, beside the bound: one launch a
+    leaf, and the kernel allocates nothing. Returns the row."""
+    import gc
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import mar_allreduce as mar
+    from repro_torch.core.fl_device import fl_state_shape
+    from repro_torch.core.moshpit import plan_grid
+    from repro_torch.kernels import mar_rounds
+    from repro_torch.kernels.ref import mar_rounds_ref
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+
+    n, plan = 4, plan_grid(4)
+    dims, axes = plan.dims, tuple(range(plan.depth))
+    check(dims == (2, 2), f"mar_rounds: grid {dims}")
+    shape = fl_state_shape(Model(get_config("musicgen-medium")), n)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = {k: tuple(torch.randn(x.shape, generator=gen, device="cuda")
+                      .to(x.dtype) for x in tree_leaves(shape[k]))
+             for k in ("params", "momentum")}
+    leaves = tree_leaves(state)
+    empty = torch.ones(n, device="cuda")
+    first = mar_rounds.groups(dims, (0,))[0][0]
+    for q in range(n):
+        if first >> q & 1:
+            empty[q] = 0.0
+    err, unequal = 0.0, []
+    for name, mask in (("full", torch.ones(n, device="cuda")),
+                       ("empty_group", empty)):
+        for i, x in enumerate(leaves):
+            x2 = x.view(n, -1)
+            got = x2.clone()
+            mar_rounds.launches = 0
+            mar_rounds.mar_rounds_(got, dims, axes, mask)
+            check(mar_rounds.launches == 1,
+                  f"mar_rounds {name} leaf {i}: {mar_rounds.launches} "
+                  f"launches")
+            for c0 in range(0, x2.shape[1], 1 << 24):
+                want = mar_rounds_ref(x2[:, c0:c0 + (1 << 24)], dims, axes,
+                                      mask)
+                blk = got[:, c0:c0 + (1 << 24)]
+                err = max(err, float((blk.float() - want.float())
+                                     .abs().max()))
+                if not torch.equal(blk, want):
+                    unequal.append(f"{name} leaf {i} {x.dtype} "
+                                   f"{tuple(x.shape)} column {c0}")
+                del want
+            del got
+    plain = mock.patch.object(mar, "_takes_kernel", lambda *a: False)
+
+    def kernel_route():
+        mar.mar_aggregate_device(state, plan)
+
+    def plain_route():
+        with plain:
+            mar.mar_aggregate_device(state, plan)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mar_rounds.launches = 0
+    kernel_route()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    launches = mar_rounds.launches
+    # a spin of ~10 ms: the plain route queues thousands of launches
+    kernel_ms = device_ms(torch, kernel_route, reps=10, warmup=1,
+                          flush=flush, spin=20_000_000)
+    plain_ms = device_ms(torch, plain_route, reps=3, warmup=1,
+                         flush=flush, spin=20_000_000)
+    bound = mar_rounds_bound_ms(leaves, len(axes))
+    row = {"kind": "musicgen-medium theta and m, 4 peers on (2, 2)",
+           "leaves": len(leaves),
+           "params_per_peer": sum(x[0].numel() for x in state["params"]),
+           "state_bytes": sum(x.numel() * x.element_size()
+                              for x in leaves),
+           "max_abs_err": err, "not_bit_equal": unequal[:8],
+           "launches_a_call": launches, "allocated_by_call": allocated,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": max(bound.values()), **bound}
+    row.update(shares(kernel_ms, row["bound_ms"], None))
+    emit("mar_rounds", **row)
+    check(not unequal, f"mar_rounds: not bit-equal to the plain version "
+                       f"(max abs err {err}): {unequal[:8]}")
+    check(launches == len(leaves),
+          f"mar_rounds: {launches} launches for {len(leaves)} leaves")
+    check(allocated == 0, f"mar_rounds: the call allocated {allocated} B")
+    del state, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def run_quickstart(torch, Federation, cfg, ops, iterations: int = 20):
     fed = Federation(cfg)           # the default device: cuda
     state = fed.init_state()
@@ -973,11 +1104,12 @@ def _socket_quickstart(torch, cfg, ops, each=None, iterations: int = 20
             "payload_bytes": payload}
 
 
-def _socket_trainer(torch, smi, tmp: str) -> int:
+def _socket_trainer(torch, smi, tmp: str) -> dict:
     """``launch.train`` over the socket transport at starcoder2-3b's
     smoke config: once in process (flash counted), then as two rank
     processes of one loopback book on the card. Each comm-total line,
-    wall-clock masked, is the reference's. Returns flash's launches."""
+    wall-clock masked, is the reference's. Returns the in-process run's
+    flash and mar_rounds launches."""
     import contextlib
     import io
     import os
@@ -997,7 +1129,9 @@ def _socket_trainer(torch, smi, tmp: str) -> int:
     ops.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
         rc = train.main(argv)
-    flash = ops.launch_counts()["flash_attention"]
+    counts = {k: ops.launch_counts()[k]
+              for k in ("flash_attention", "mar_rounds")}
+    flash = counts["flash_attention"]
     one_s = time.perf_counter() - t0
     line = wall_masked(next(ln for ln in buf.getvalue().splitlines()
                             if ln.startswith("[train] comm total=")))
@@ -1029,6 +1163,7 @@ def _socket_trainer(torch, smi, tmp: str) -> int:
     lines = [[wall_masked(ln) for ln in out.splitlines()
               if ln.startswith("[train] comm total=")] for out, _ in outs]
     emit("federation_socket_trainer", args=argv, flash_launches=flash,
+         mar_rounds_launches=counts["mar_rounds"],
          in_process_s=one_s, two_rank_s=two_s,
          rank_lines=lines, rank_rcs=[p.returncode for p in procs],
          card=smi)
@@ -1037,7 +1172,7 @@ def _socket_trainer(torch, smi, tmp: str) -> int:
                                  f"{p.returncode}: {err[-2000:]}")
         check(lines[r] == [TRAIN_CLI_RANKS["starcoder2-3b"][r]],
               f"federation_socket rank {r}: {lines[r]}")
-    return flash
+    return counts
 
 
 def phase_federation_socket(torch, smi):
@@ -1186,9 +1321,9 @@ def phase_federation_socket(torch, smi):
                                f"{cal.returncode}: {cal.stderr[-2000:]}")
 
     with tempfile.TemporaryDirectory() as tmp:
-        flash = _socket_trainer(torch, smi, tmp)
+        trainer = _socket_trainer(torch, smi, tmp)
     emit("federation_socket_phase", seconds=time.perf_counter() - t_phase)
-    return launches, flash
+    return launches, trainer
 
 
 def phase_vision(torch):
@@ -3161,6 +3296,7 @@ def phase_train(torch, smi, record=None):
           f"unexpected config {cfg}")
     return _train_full_width(torch, smi, "train", TRAIN_ARGS, {
         "flash_attention": TRAIN_FLASH_PER_STEP, "ssd_scan": 0,
+        "mar_rounds": TRAIN_MAR_ROUNDS_PER_STEP,
         "comm_bytes": TRAIN_COMM_BYTES}, record)
 
 
@@ -3185,6 +3321,7 @@ def phase_train_recurrent(torch, smi):
         launches = _train_full_width(torch, smi, "train_recurrent", args, {
             "ssd_scan": want["ssd_per_step"],
             "flash_attention": want["flash_per_step"],
+            "mar_rounds": want["mar_rounds_per_step"],
             "comm_bytes": want["comm_bytes"], "params": want["params"]})
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
@@ -3474,6 +3611,11 @@ def _train_mesh_full_width(torch, smi, record: dict) -> dict:
               == TRAIN_FLASH_PER_STEP * TRAIN_MESH_STEPS,
               f"train_mesh (a): {launches['flash_attention']} flash "
               f"launches, expected {TRAIN_FLASH_PER_STEP} a step")
+        check(launches["mar_rounds"]
+              == TRAIN_MAR_ROUNDS_PER_STEP * TRAIN_MESH_STEPS,
+              f"train_mesh (a): {launches['mar_rounds']} mar_rounds "
+              f"launches, expected {TRAIN_MAR_ROUNDS_PER_STEP} a step "
+              f"(both rounds lie inside the one rank)")
         check(ledger.total_bytes == TRAIN_MESH_COMM_BYTES,
               f"train_mesh (a): ledger {ledger.total_bytes} != the "
               f"reference's {TRAIN_MESH_COMM_BYTES}")
@@ -3703,7 +3845,7 @@ def main() -> None:
                 for k, v in report.items()})
     emit("ptxas", kernels=ptxas_summary(
         report, ["group_mean", "flash_attention", "decode_attention",
-                 "ssd_scan"]))
+                 "ssd_scan", "mar_rounds"]))
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     # what the timing method reads for one near-empty kernel: the floor
@@ -3718,13 +3860,14 @@ def main() -> None:
     decode_rows = phase_decode(torch, flush)
     ssd_rows = phase_ssd_scan(torch, flush)
     phase_ssd_scan_grad(torch, flush)
+    mar_row = phase_mar_rounds(torch, flush)
     del flush
     phase_vision(torch)
     launches = phase_federation(torch, smi)
     launches += phase_federation_extensions(torch, smi)
     launches += phase_figures(torch, smi)
     launches += phase_federation_large_n(torch, smi)
-    socket_launches, socket_flash = phase_federation_socket(torch, smi)
+    socket_launches, socket_trainer = phase_federation_socket(torch, smi)
     launches += socket_launches
     phase_profile(torch)
     serve_launches = phase_serve(torch, smi)
@@ -3752,7 +3895,9 @@ def main() -> None:
     # and moonshot prefills, the musicgen and zamba2 training steps, the
     # musicgen steps on a DTensor state (train_mesh) and the in-process
     # socket trainer's steps; paged: starcoder2 and moonshot decode
-    # steps; ssd_scan: the zamba2 and xlstm prefills and training steps)
+    # steps; ssd_scan: the zamba2 and xlstm prefills and training steps;
+    # mar_rounds: its phase's row, the musicgen, zamba2, xlstm and
+    # train_mesh (a) training steps and the in-process socket trainer's)
     qs = [r for r in round_rows if r["kind"] == "quickstart"]
     print(json.dumps({"kernels": [
         {**kernel_entry("group_mean",
@@ -3769,7 +3914,8 @@ def main() -> None:
                      + moe_launches["flash_attention"]
                      + train_launches["flash_attention"]
                      + recurrent_train_launches["flash_attention"]
-                     + mesh_launches["flash_attention"] + socket_flash,
+                     + mesh_launches["flash_attention"]
+                     + socket_trainer["flash_attention"],
                      flash_rows[0]),
         kernel_entry("paged_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3786,6 +3932,13 @@ def main() -> None:
                      "src/repro/kernels/ssd_scan.py:70",
                      recurrent_launches["ssd_scan"]
                      + recurrent_train_launches["ssd_scan"], ssd_rows[0]),
+        kernel_entry("mar_rounds",
+                     "src/repro_torch/kernels/csrc/mar_rounds.cu",
+                     "src/repro/core/mar_allreduce.py:166",
+                     train_launches["mar_rounds"]
+                     + recurrent_train_launches["mar_rounds"]
+                     + mesh_launches["mar_rounds"]
+                     + socket_trainer["mar_rounds"], mar_row),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

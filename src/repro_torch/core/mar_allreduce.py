@@ -8,11 +8,15 @@ MAR round is a masked mean over that axis within the round's groups.
   and virtual grid slots (capacity > N).
 * device backend (``mar_round_device``): the reference's grid reshape
   ``[P, ...] -> [*dims, ...]`` and a masked mean over the round's axis,
-  for exact grids (capacity == N). It writes each leaf in place, one
-  block of columns at a time, so only one block's temporaries are
-  alive: at full width the old and new state would not fit together.
-  ``comm_dtype`` sets the dtype of the cross-peer sum (the wire
-  format); ``one_shot`` is one global masked mean. When the leaves are
+  for exact grids (capacity == N). It writes each leaf in place: at full
+  width the old and new state would not fit together. On the card a
+  contiguous leaf of 2 or 4 peers whose sum is f32 runs all its
+  rounds in one in-place kernel pass (``kernels/mar_rounds.py``,
+  ``mar_aggregate_device`` hands it every round at once); any other leaf
+  takes them one block of columns at a time, so only one block's
+  temporaries are alive. ``comm_dtype`` sets the dtype of the
+  cross-peer sum (the wire format); ``one_shot`` is one global masked
+  mean. When the leaves are
   DTensors whose peer dim is sharded over mesh dims (the peers spread
   over ranks, a contiguous block of peers a rank), a round takes each
   rank's masked partial sums over its own peers, then one
@@ -33,11 +37,13 @@ kernel (``kernels/group_mean.py``); otherwise ``_segment_mean`` sums
 each group's rows (``index_add_`` on the CPU, a grouped sum on the
 card, where ``index_add_``'s atomics add in another order on every
 run). The device backend is the reference's reshape mean, which is no
-Pallas kernel there and no kernel here.
+Pallas kernel there; here the in-place rounds kernel takes it on the
+card wherever the sum is f32, and plain PyTorch everywhere else.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,6 +51,7 @@ import torch
 
 from repro_torch.core.aggregation import finalize_masked_mean
 from repro_torch.core.moshpit import GridPlan
+from repro_torch.kernels import mar_rounds
 from repro_torch.tree import Tree, tree_leaves, tree_map, tree_unflatten
 
 
@@ -303,16 +310,35 @@ def _blocks(x: torch.Tensor) -> List[torch.Tensor]:
     return [flat[:, c0:c0 + cols] for c0 in range(0, flat.shape[1], cols)]
 
 
-def _mean_into_(x: torch.Tensor, dims: Sequence[int], axis: int,
+def _takes_kernel(x: torch.Tensor, comm_dtype) -> bool:
+    """Whether leaf ``x``'s rounds run as one in-place kernel pass
+    (``kernels/mar_rounds.py``): a contiguous CUDA leaf of at least two
+    dims, of a dtype the kernel has, with a peer count it is built for
+    (``mar_rounds.PEERS``), summed in f32. Everything else (a bf16 wire
+    sum, other peer counts, the CPU, ``meta``) takes the plain route."""
+    return (x.device.type == "cuda" and x.is_contiguous() and x.dim() >= 2
+            and x.dtype in mar_rounds.DTYPES
+            and x.shape[0] in mar_rounds.PEERS
+            and _acc_dtype(comm_dtype) == torch.float32)
+
+
+def _mean_into_(x: torch.Tensor, dims: Sequence[int], axes: Sequence[int],
                 mask: torch.Tensor, comm_dtype) -> None:
-    """Write :func:`_grid_reshape_mean` of ``x`` into ``x``, one block of
-    columns at a time (the mean is columnwise, so the blocks are
-    independent)."""
+    """Write the rounds ``axes`` of :func:`_grid_reshape_mean` of ``x``,
+    in order, into ``x``: in one kernel pass where
+    :func:`_takes_kernel`, else one block of columns at a time (the mean
+    is columnwise, so the blocks are independent)."""
+    if _takes_kernel(x, comm_dtype):
+        mar_rounds.mar_rounds_(x.view(x.shape[0], -1), dims, axes,
+                               mask.float().contiguous())
+        return
     if not x.is_contiguous() or x.dim() < 2:
-        x.copy_(_grid_reshape_mean(x, dims, axis, mask, comm_dtype))
+        for axis in axes:
+            x.copy_(_grid_reshape_mean(x, dims, axis, mask, comm_dtype))
         return
     for blk in _blocks(x):
-        blk.copy_(_grid_reshape_mean(blk, dims, axis, mask, comm_dtype))
+        for axis in axes:
+            blk.copy_(_grid_reshape_mean(blk, dims, axis, mask, comm_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -428,22 +454,39 @@ def peer_group(lay: PeerLayout, dims: Sequence[int], axis: int):
 RANK_BUCKET_ELEMS = DEVICE_BLOCK_ELEMS
 
 
-def _rank_round(leaves, dims: Sequence[int], axis: int,
-                mask: torch.Tensor, comm_dtype) -> None:
-    """One round (grid ``dims``, axis ``axis``) over DTensor ``leaves``,
-    in place in each rank's local shards."""
+def _rank_rounds(leaves, dims: Sequence[int], axes: Sequence[int],
+                 mask: torch.Tensor, comm_dtype) -> None:
+    """The rounds ``axes`` (grid ``dims``), in order, over DTensor
+    ``leaves``, in place in each rank's local shards. Consecutive rounds
+    that lie inside the rank run together (``_mean_into_``); a round
+    across ranks sums over its group of ranks (``_cross_round``)."""
+    lay = state_layout(leaves)
+    local_dims, _ = split_grid(dims, lay.n_local)
+    m_loc = mask[lay.first:lay.first + lay.n_local]
+    locs = [x.to_local() for x in leaves]
+    for inside, run in itertools.groupby(
+            axes, lambda a: peer_group(lay, dims, a) is None):
+        if inside:
+            run = tuple(run)
+            for x in locs:
+                _mean_into_(x, local_dims, run, m_loc, comm_dtype)
+            continue
+        for axis in run:
+            _cross_round(locs, lay, dims, axis, mask, comm_dtype)
+
+
+def _cross_round(locs, lay: PeerLayout, dims: Sequence[int], axis: int,
+                 mask: torch.Tensor, comm_dtype) -> None:
+    """Round ``axis`` (grid ``dims``) across ranks over the local shards
+    ``locs`` of layout ``lay``: each rank's masked partial sums, summed
+    over the round's group of ranks in buckets, then each local peer's
+    group mean."""
     import torch.distributed as dist
 
-    lay = state_layout(leaves)
     local_dims, _ = split_grid(dims, lay.n_local)
     mine = slice(lay.first, lay.first + lay.n_local)
     m_loc = mask[mine]
-    locs = [x.to_local() for x in leaves]
     group = peer_group(lay, dims, axis)
-    if group is None:                    # the round lies inside the rank
-        for x in locs:
-            _mean_into_(x, local_dims, axis, m_loc, comm_dtype)
-        return
     acc = _acc_dtype(comm_dtype)
     # each local peer's group count, from the replicated mask: [*local
     # grid with the round's axis 1, 1]
@@ -495,16 +538,16 @@ def mar_round_device(state: Tree, plan: GridPlan, rnd: int,
     groups on grid axis ``rnd``; the masked mean over that axis is the
     round (the paper's partial communication). DTensor leaves whose
     peers are spread over ranks take the round over ranks
-    (``_rank_round``)."""
+    (``_rank_rounds``)."""
     assert plan.capacity == plan.n_peers, "device backend needs exact grids"
     if mask is None:
         mask = _ones_mask(state)
     leaves = tree_leaves(state)
     if is_sharded(leaves[0]):
-        _rank_round(leaves, plan.dims, rnd, mask, comm_dtype)
+        _rank_rounds(leaves, plan.dims, (rnd,), mask, comm_dtype)
         return state
     for x in leaves:
-        _mean_into_(x, plan.dims, rnd, mask, comm_dtype)
+        _mean_into_(x, plan.dims, (rnd,), mask, comm_dtype)
     return state
 
 
@@ -513,23 +556,22 @@ def mar_aggregate_device(state: Tree, plan: GridPlan,
                          one_shot: bool = False,
                          comm_dtype=None) -> Tree:
     """Full MAR schedule on the device backend, in place; returns
-    ``state``.
+    ``state``. A leaf on one card takes every round at once
+    (``_mean_into_``); DTensor leaves take each run of rounds inside a
+    rank at once and each round across ranks alone (``_rank_rounds``).
 
     ``one_shot`` fuses the d rounds into a single global masked mean —
     identical under full participation (beyond-paper variant).
     """
-    if one_shot:
-        assert plan.capacity == plan.n_peers, \
-            "device backend needs exact grids"
-        if mask is None:
-            mask = _ones_mask(state)
-        leaves = tree_leaves(state)
-        if is_sharded(leaves[0]):
-            _rank_round(leaves, (plan.capacity,), 0, mask, comm_dtype)
-            return state
-        for x in leaves:
-            _mean_into_(x, (plan.capacity,), 0, mask, comm_dtype)
+    assert plan.capacity == plan.n_peers, "device backend needs exact grids"
+    if mask is None:
+        mask = _ones_mask(state)
+    dims, axes = (((plan.capacity,), (0,)) if one_shot
+                  else (plan.dims, tuple(range(plan.depth))))
+    leaves = tree_leaves(state)
+    if is_sharded(leaves[0]):
+        _rank_rounds(leaves, dims, axes, mask, comm_dtype)
         return state
-    for g in range(plan.depth):
-        state = mar_round_device(state, plan, g, mask, comm_dtype)
+    for x in leaves:
+        _mean_into_(x, dims, axes, mask, comm_dtype)
     return state

@@ -6,8 +6,9 @@ directory is git-ignored). The hash covers the source, the shared
 headers (``csrc/*.cuh``) and the flags, so an edited source or header
 never loads a stale library. Libraries are built at
 first use, never at import: the CPU tests import every module on hosts
-without ``nvcc``. :func:`build_all` starts one ``nvcc`` per source, all
-at once, and waits for them together.
+without ``nvcc``; :func:`load` builds only the library it loads.
+:func:`build_all` starts one ``nvcc`` per source, all at once, and waits
+for them together.
 
 The libraries are loaded with ``ctypes``; callers declare ``argtypes``
 for every function (``c_void_p`` for each pointer and the stream), or
@@ -23,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -61,8 +62,10 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all() -> Dict[str, Dict[str, object]]:
-    """Build every missing library, one ``nvcc`` per source in parallel.
+def build_all(names: Optional[Iterable[str]] = None
+              ) -> Dict[str, Dict[str, object]]:
+    """Build every missing library of ``names`` (default: every source),
+    one ``nvcc`` per source in parallel.
 
     Returns ``{name: {"seconds": ..., "log": ...}}`` for the sources it
     compiled (``log`` is nvcc's ``-Xptxas -v`` report: registers, shared
@@ -72,7 +75,7 @@ def build_all() -> Dict[str, Dict[str, object]]:
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
-    for name in sources():
+    for name in sources() if names is None else names:
         out = _library_path(name)
         if out.exists():
             continue
@@ -101,7 +104,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     path = _library_path(name)
     if not path.exists():
-        build_all()
+        build_all([name])
     return ctypes.CDLL(str(path))
 
 

@@ -14,12 +14,13 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import group_mean as _group_mean
+from repro_torch.kernels import mar_rounds as _mar_rounds
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ssd_scan as _ssd
 
 _MODULES = {"group_mean": _group_mean, "flash_attention": _flash,
             "decode_attention": _decode, "paged_decode_attention": _paged,
-            "ssd_scan": _ssd}
+            "ssd_scan": _ssd, "mar_rounds": _mar_rounds}
 
 
 def _check(cond: bool, msg: str) -> None:

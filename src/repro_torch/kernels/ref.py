@@ -49,6 +49,20 @@ def group_mean_round_ref(xs: Sequence[torch.Tensor], order: torch.Tensor,
     return out
 
 
+def mar_rounds_ref(x: torch.Tensor, dims: Sequence[int],
+                   axes: Sequence[int], mask: torch.Tensor) -> torch.Tensor:
+    """The device backend's MAR rounds ``axes`` over grid ``dims`` of x
+    ([P, ...], peers row major over ``dims``), in order: each round the
+    plain route's masked mean with an f32 sum
+    (``core/mar_allreduce._grid_reshape_mean``), rounded to x's dtype.
+    A fresh tensor; x is not written."""
+    # imported here: the core package imports the kernels at load time
+    from repro_torch.core.mar_allreduce import _grid_reshape_mean
+    for axis in axes:
+        x = _grid_reshape_mean(x, dims, axis, mask)
+    return x
+
+
 NEG_INF = -1e30
 
 

@@ -96,3 +96,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running (dry-run scale)")
+    config.addinivalue_line(
+        "markers", "cuda: runs a kernel on an NVIDIA GPU; skips without one")

@@ -269,7 +269,7 @@ def test_cpu_paths_are_plain_and_count_no_launch():
     assert ops.launch_counts() == {"group_mean": 0, "flash_attention": 0,
                                    "decode_attention": 0,
                                    "paged_decode_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "mar_rounds": 0}
 
 
 def test_non_cpu_tensors_never_fall_back(monkeypatch):
