@@ -230,6 +230,14 @@ Phases, each printing JSON lines:
                 and 168 SSD-scan launches an xlstm step, 38 and 32
                 mar_rounds launches a step (one a leaf), and the ledgers
                 of TRAIN_RECURRENT.
+   train_zamba2 — the published Zamba2-2.7B (``models/zamba2.py``,
+                2,662,214,560 parameters) at the shape of the cell
+                ``zamba2-2.7b.fl_train_4k``: 2 peers on (2,), one local
+                step of 1 x 4,096 tokens, 3 steps, bf16, seed 0, through
+                ``make_fl_train_step``: finite losses, the peers bit-equal
+                after each step, 36 flash (d = 160), 216 SSD-scan and 44
+                mar_rounds launches a step, counted from 0 just before
+                the first, the peak under the card's memory.
    train_recurrent_parity — both families' smoke configs at 2 layers in
                 f32: 3 steps on the card and on the CPU from one
                 theta^0, losses and theta within 1e-4, 96 SSD-scan
@@ -266,7 +274,8 @@ Phases, each printing JSON lines:
                 kernel's include the moonshot run's, flash's the
                 training runs' (train_mesh's too) and the in-process
                 socket trainer's,
-                the SSD scan's the recurrent training runs', the MAR
+                the SSD scan's the recurrent training runs' (the
+                published Zamba2's too), the MAR
                 rounds kernel's the training runs' and the in-process
                 socket trainer's), max error, times, bound.
 
@@ -275,11 +284,14 @@ Phase 4 also runs the flash kernel at zamba2's shared-attention shape
 moonshot's (h=kvh=16, d=128: one query head per kv head, g=1) in bf16
 and f32, flash at the trainers' shapes (row 2t, musicgen-medium: b=2,
 s=128, h=kvh=24, d=64; row 2h, zamba2's shared block: h=kvh=32, d=80;
-bf16) with the plain backward's time beside SDPA's backward (not
-gated), and an ``ssd_scan`` phase holds the
+row 2p, the published Zamba2's: b=1, s=4,096, h=kvh=32, d=160 scaled by
+(160 / 2) ** -0.5, the template's d = 160 instance; bf16) with the plain
+backward's time beside SDPA's backward (not gated), and an ``ssd_scan``
+phase holds the
 SSD-scan kernel against its plain sequential version at both families'
 prefill shapes (zamba2: 80 heads, dk=dv=64, B and C broadcast with a
 head stride of 0, Mamba's decay rates; xlstm: 4 heads, dk 512, dv 513),
+at the published Zamba2's training shape (b=1, S=4,096, bf16, timed),
 S=200 and S=1 with a nonzero h0, in f32 and bf16, and in bf16 one past
 a 64-step chunk (zamba2, S=65 and 129) and with v at an odd time stride
 (zamba2) or cut to dv 512 (xlstm), so every instantiation of the bf16
@@ -517,6 +529,16 @@ TRAIN_RECURRENT = {
                        ssd_per_step=21 * 2 * 4, flash_per_step=0,
                        mar_rounds_per_step=16 * 2),
 }
+# The published Zamba2-2.7B (models/zamba2.py; the benchmark's
+# configuration zamba2-2.7b, 2,662,214,560 parameters in 22 leaves)
+# trained as the cell zamba2-2.7b.fl_train_4k trains it: 2 peers on the
+# grid (2,), one local step of 1 x 4,096 tokens; per step, flash in the
+# forward and remat recompute of the 9 shared-block applications of each
+# peer, the SSD scan in those of the 54 Mamba2 layers, mar_rounds once a
+# leaf of theta and of m
+ZAMBA2_PUBLISHED = dict(config="zamba2-2.7b", peers=2, seq=4096, steps=3,
+                        params=2_662_214_560, flash_per_step=9 * 2 * 2,
+                        ssd_per_step=54 * 2 * 2, mar_rounds_per_step=22 * 2)
 # The federation_large_n runs: the paper's text model under adaptive
 # group sizing at N = 125 on each transport, and clustered placement at
 # N = 64 on shuffled regions; the kernel on, 20 iterations. The
@@ -1855,6 +1877,10 @@ STARCODER = dict(h=24, kvh=2, d=128)            # starcoder2-3b attention
 ZAMBA2_ATTN = dict(h=32, kvh=32, d=80)          # zamba2-2.7b shared block
 MOONSHOT_ATTN = dict(h=16, kvh=16, d=128)       # moonshot-v1-16b-a3b (g=1)
 TRAIN_ATTN = dict(h=24, kvh=24, d=64)           # musicgen-medium (g=1)
+#: the published Zamba2-2.7B's shared attention (models/zamba2.py):
+#: 32 heads of 160, scaled by (160 / 2) ** -0.5, at 4,096 tokens
+ZAMBA2_PUBLISHED_ATTN = dict(h=32, kvh=32, d=160)
+ZAMBA2_PUBLISHED_SCALE = (160 / 2) ** -0.5
 SERVE = dict(max_batch=8, block_size=16, pad_len=512, max_new=64,
              sessions=16)
 SERVE_LAYERS = 30
@@ -1956,28 +1982,36 @@ def phase_flash(torch, flush):
         emit("flash_attention", **row)
     rows.append(_flash_train_row(torch, flush, gen, "2t", TRAIN_ATTN))
     rows.append(_flash_train_row(torch, flush, gen, "2h", ZAMBA2_ATTN))
+    rows.append(_flash_train_row(torch, flush, gen, "2p",
+                                 ZAMBA2_PUBLISHED_ATTN, b=1,
+                                 s=ZAMBA2_PUBLISHED["seq"],
+                                 scale=ZAMBA2_PUBLISHED_SCALE))
     return rows
 
 
-def _flash_train_row(torch, flush, gen, tag: str, attn: dict):
+def _flash_train_row(torch, flush, gen, tag: str, attn: dict, b: int = 2,
+                     s: int = 128, scale=None):
     """A row at a trainer's shape (2t, musicgen-medium: b=2, s=128,
-    h=kvh=24, d=64; 2h, zamba2's shared block: h=kvh=32, d=80; bf16),
-    gated as the other rows; beside it, for information, the plain
-    backward (``attention_flash.flash_bwd``, the reference's blockwise
-    recompute) against SDPA's backward on the same inputs."""
+    h=kvh=24, d=64; 2h, zamba2's shared block: h=kvh=32, d=80; 2p, the
+    published Zamba2's: b=1, s=4,096, h=kvh=32, d=160 at its scale, the
+    template's d = 160 instance; bf16), gated as the other rows, the
+    kernel, the plain route and SDPA at the same ``scale`` (1/sqrt(d)
+    where it is None); beside it, for information, the plain backward
+    (``attention_flash.flash_bwd``, the reference's blockwise recompute)
+    against SDPA's backward on the same inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models.attention_flash import flash_bwd
 
-    b, s, dtype = 2, 128, torch.bfloat16
+    dtype = torch.bfloat16
     h, kvh, d = attn["h"], attn["kvh"], attn["d"]
     q, k, v = (torch.randn((b, s, n, d), generator=gen,
                            device="cuda").to(dtype) for n in (h, kvh, kvh))
     do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
-    o, lse = fa.flash_attention_fwd(q, k, v, True)
-    o_ref, lse_ref = flash_attention_ref(q, k, v, True)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, True, scale)
     torch.cuda.synchronize()
     tol = _tol(torch, dtype)
     err = float((o.float() - o_ref.float()).abs().max())
@@ -1990,18 +2024,20 @@ def _flash_train_row(torch, flush, gen, tag: str, attn: dict):
                                4 * b * h * d * pairs, True)
     row = _row("train", dtype, err, tol,
                device_ms(torch, lambda: fa.flash_attention_fwd(
-                   q, k, v, True), flush=flush),
+                   q, k, v, True, scale), flush=flush),
                device_ms(torch, lambda: flash_attention_ref(
-                   q, k, v, True), flush=flush),
+                   q, k, v, True, scale), flush=flush),
                device_ms(torch, lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True), flush=flush),
+                   qt, kt, vt, is_causal=True, scale=scale), flush=flush),
                bound, b=b, s=s, h=h, kvh=kvh, d=d)
-    row.update(lse_max_abs_err=lse_err, row=tag)
+    row.update(lse_max_abs_err=lse_err, row=tag, scale=scale)
     lse4 = lse.view(b, kvh, h // kvh, s)
     row["plain_backward_ms"] = device_ms(
-        torch, lambda: flash_bwd(q, k, v, o, lse4, do, True), flush=flush)
+        torch, lambda: flash_bwd(q, k, v, o, lse4, do, True, scale=scale),
+        flush=flush)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         scale=scale)
     dot = do.transpose(1, 2)
     row["sdpa_backward_ms"] = device_ms(
         torch, lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
@@ -2433,14 +2469,16 @@ def _worst_head_rel(torch, got, want):
 
 def phase_ssd_scan(torch, flush):
     """The SSD-scan kernel against ``ssd_scan_ref`` (the sequential scan)
-    at both families' prefill shapes, S=200 (ragged) and S=1, and in
-    bf16 one past a 64-step chunk (zamba2, S=65 and 129) and with the
-    bf16 entry's other two v layouts (``_relayout``), with a nonzero h0
-    in all but the path rows. y and h_final each within 1e-4 (f32) or
+    at both families' prefill shapes, at the published Zamba2's training
+    shape (``train_4k``: b=1, 80 heads, S=4,096, bf16, timed as the path
+    rows), S=200 (ragged) and S=1, and in bf16 one past a 64-step
+    chunk (zamba2, S=65 and 129) and with the bf16 entry's other two v
+    layouts (``_relayout``), with a nonzero h0 in all but the path and
+    train_4k rows. y and h_final each within 1e-4 (f32) or
     2e-2 (bf16) of the plain version, relative to its largest magnitude,
     over the whole tensor and in every (batch, head) on its own:
     the kernel sums each chunk's products in another order than the
-    step-by-step scan, across 512 steps; the bf16 kernel rounds the
+    step-by-step scan, across 512 (or 4,096) steps; the bf16 kernel rounds the
     gated scores and w o v to bf16 and carries H's hi/lo split into
     q . H, and bf16 y rounds once more. No single PyTorch call computes
     a gated linear recurrence, so there is no library time."""
@@ -2455,6 +2493,8 @@ def phase_ssd_scan(torch, flush):
             ("path", "zamba2", s_path, torch.float32, 0.0),
             ("path", "xlstm", s_path, torch.bfloat16, 0.0),
             ("path", "xlstm", s_path, torch.float32, 0.0),
+            ("train_4k", "zamba2", ZAMBA2_PUBLISHED["seq"], torch.bfloat16,
+             0.0),
             ("ragged", "zamba2", 200, torch.bfloat16, 0.5),
             ("ragged", "xlstm", 200, torch.float32, 0.5),
             ("ragged", "xlstm", 200, torch.bfloat16, 0.5),
@@ -2501,7 +2541,7 @@ def phase_ssd_scan(torch, flush):
                   + _nbytes(y, h))
         bound = attention_bound_ms(nbytes, ssd_flops(b, nh, s, dk, dv),
                                    dtype == torch.bfloat16)
-        timed = kind == "path"
+        timed = kind in ("path", "train_4k")
         row = _row(kind, dtype, err, tol,
                    device_ms(torch, lambda: ss.ssd_scan_fwd(
                        q, k, v, log_a, h0), flush=flush) if timed else None,
@@ -3328,6 +3368,89 @@ def phase_train_recurrent(torch, smi):
     return totals
 
 
+def phase_train_zamba2(torch, smi):
+    """The published Zamba2-2.7B (``models/zamba2.py``) at the shape of
+    ``zamba2-2.7b.fl_train_4k`` (ZAMBA2_PUBLISHED): the port's own init
+    (seed 0), ``init_fl_state`` and ``make_fl_train_step`` over the grid
+    (2,), as the benchmark's entry drives them, bf16, 3 steps of fresh
+    token batches. Gates: the counted parameters, a finite loss, both
+    peers' theta and m bit-equal after every step (a group of two means
+    to one value), the launch counts of flash (d = 160 at Zamba2's
+    scale), ssd_scan and mar_rounds, counted from 0 just before the
+    first step, and the peak under the card's memory. Returns the
+    launch counts."""
+    import gc
+
+    from portbench import spec
+    from repro_torch.core.fl_device import init_fl_state, make_fl_train_step
+    from repro_torch.core.moshpit import plan_grid
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+
+    z = ZAMBA2_PUBLISHED
+    bench = spec.Bench()
+    cfg = bench.entry("fl_train_zamba2").port_config(
+        bench.config(z["config"]))
+    check(cfg.param_count() == z["params"] and cfg.head_dim == 160
+          and cfg.dtype == "bfloat16" and cfg.remat == "block",
+          f"unexpected config {cfg}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg)
+    peers, seq = z["peers"], z["seq"]
+    state = init_fl_state(model, peers, seed=0, device="cuda")
+    step_fn = make_fl_train_step(model, plan_grid(peers))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = []
+    for _ in range(z["steps"]):
+        ids = torch.randint(0, cfg.vocab_size, (peers, 1, 1, 1, seq + 1),
+                            generator=gen, device="cuda")
+        batches.append({"tokens": ids[..., :-1].int().contiguous(),
+                        "labels": ids[..., 1:].int().contiguous()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    steps = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        steps.append({"step": i + 1, "loss": float(met["loss"]),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "peers_bit_equal": _bit_equal_peers(
+                          torch, tree_leaves, state["params"])
+                      and _bit_equal_peers(torch, tree_leaves,
+                                           state["momentum"])})
+        emit("train_zamba2_step", **steps[-1])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    n = len(steps)
+    expect = {"flash_attention": z["flash_per_step"] * n,
+              "ssd_scan": z["ssd_per_step"] * n,
+              "mar_rounds": z["mar_rounds_per_step"] * n}
+    emit("train_zamba2", config=z, leaves=len(tree_leaves(state["params"])),
+         losses=[st["loss"] for st in steps], first_step_ms=steps[0]["ms"],
+         median_ms_steps_2_3=statistics.median(st["ms"] for st in steps[1:]),
+         peak_memory_bytes=peak, card_memory_bytes=total, launches=launches,
+         expected_launches=expect, card=smi)
+    check(all(math.isfinite(st["loss"]) for st in steps),
+          f"train_zamba2: a loss is not finite: "
+          f"{[st['loss'] for st in steps]}")
+    check(all(st["peers_bit_equal"] for st in steps),
+          "train_zamba2: the peers' theta or m differ after a step")
+    for name, want in expect.items():
+        check(launches[name] == want,
+              f"train_zamba2: {name} launched {launches[name]} times, "
+              f"expected {want}")
+    check(peak < total, f"train_zamba2: peak {peak} >= the card's {total}")
+    del state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _parity_batches(np, cfg, n: int, steps: int, prefix: int):
     rng = np.random.default_rng(7)
     out = []
@@ -3880,6 +4003,7 @@ def main() -> None:
     train_record = {}
     train_launches = phase_train(torch, smi, train_record)
     recurrent_train_launches = phase_train_recurrent(torch, smi)
+    zamba2_launches = phase_train_zamba2(torch, smi)
     phase_train_parity(torch)
     phase_train_recurrent_parity(torch)
     mesh_launches = phase_train_mesh(torch, smi, train_record)
@@ -3892,12 +4016,13 @@ def main() -> None:
     # their first (bf16, serving-path) row; ssd_scan: its first (zamba2,
     # bf16) row. Launches: each path's count, read right after it ran,
     # summed over the paths a kernel lies on (flash: starcoder2, zamba2
-    # and moonshot prefills, the musicgen and zamba2 training steps, the
-    # musicgen steps on a DTensor state (train_mesh) and the in-process
-    # socket trainer's steps; paged: starcoder2 and moonshot decode
-    # steps; ssd_scan: the zamba2 and xlstm prefills and training steps;
-    # mar_rounds: its phase's row, the musicgen, zamba2, xlstm and
-    # train_mesh (a) training steps and the in-process socket trainer's)
+    # and moonshot prefills, the musicgen, zamba2 and published Zamba2
+    # training steps, the musicgen steps on a DTensor state (train_mesh)
+    # and the in-process socket trainer's steps; paged: starcoder2 and
+    # moonshot decode steps; ssd_scan: the zamba2 and xlstm prefills and
+    # training steps and the published Zamba2's; mar_rounds: its phase's
+    # row, the musicgen, zamba2, xlstm, published Zamba2 and train_mesh
+    # (a) training steps and the in-process socket trainer's)
     qs = [r for r in round_rows if r["kind"] == "quickstart"]
     print(json.dumps({"kernels": [
         {**kernel_entry("group_mean",
@@ -3914,6 +4039,7 @@ def main() -> None:
                      + moe_launches["flash_attention"]
                      + train_launches["flash_attention"]
                      + recurrent_train_launches["flash_attention"]
+                     + zamba2_launches["flash_attention"]
                      + mesh_launches["flash_attention"]
                      + socket_trainer["flash_attention"],
                      flash_rows[0]),
@@ -3931,12 +4057,14 @@ def main() -> None:
         kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:70",
                      recurrent_launches["ssd_scan"]
-                     + recurrent_train_launches["ssd_scan"], ssd_rows[0]),
+                     + recurrent_train_launches["ssd_scan"]
+                     + zamba2_launches["ssd_scan"], ssd_rows[0]),
         kernel_entry("mar_rounds",
                      "src/repro_torch/kernels/csrc/mar_rounds.cu",
                      "src/repro/core/mar_allreduce.py:166",
                      train_launches["mar_rounds"]
                      + recurrent_train_launches["mar_rounds"]
+                     + zamba2_launches["mar_rounds"]
                      + mesh_launches["mar_rounds"]
                      + socket_trainer["mar_rounds"], mar_row),
     ]}), flush=True)

@@ -1,10 +1,16 @@
 """zamba2-2.7b [hybrid] — Mamba2 backbone + shared attention blocks
 [arXiv:2411.15242; hf].
 
-54L, d_model=2560, shared attn block (32H MHA, d_ff=10240) applied every 6
-layers with SHARED weights (Zamba2's parameter-sharing trick); remaining
-layers are Mamba2 (ssd_state=64). Hybrid family -> long_500k applies; the
+The JAX package's simplified hybrid, kept equal to it field for field:
+54L, d_model=2560, one shared attn block (32H MHA of 80, d_ff=10240)
+over the residual stream, applied as a layer of its own every 6 layers
+with SHARED weights; the remaining layers are Mamba2 (ssd_state=64)
+without conv bias or gated norm. Hybrid family -> long_500k applies; the
 shared attention block uses a sliding-window KV cache for long decode.
+
+The published Zamba2-2.7B (two shared blocks in turn on the concatenated
+embedding, head dim 160, LoRA adapters, a linear per hybrid layer) is
+``repro_torch.models.zamba2.Zamba2Config``, ``models/zamba2.py``.
 """
 from repro_torch.configs.base import ModelConfig, reduced
 

@@ -31,6 +31,14 @@
 // stores. Shared memory: 5 tiles of 64 x (16 ceil(d/16) + 8) bf16, 87 KB
 // at d=128, so two blocks fit on an SM.
 //
+// Head dims: every multiple of 8 up to 128, and 160 (Zamba2's shared
+// attention, 32 heads over the 5,120-wide concatenated input). At d=160
+// the tiles take 105 KB, and two blocks still fit on an SM (210 KB of
+// its 228), but 10 Q fragments beside 20 accumulator blocks would pass
+// the 255 registers a thread may hold there: that instance reloads the
+// warp's Q fragments from shared memory (ldmatrix) at every kv tile
+// instead of keeping them in registers.
+//
 // f32 entry: f32 arithmetic on the f32 cores (no TF32): 8 warps of 8 rows,
 // lane j scores kv row j of a 32-row tile staged in shared memory as f32
 // (online_softmax.cuh).
@@ -95,6 +103,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+// The one head dim above 128 the bf16 entry takes.
+constexpr int kWideD = 160;
+
 template <int KD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -104,6 +115,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       int n_qt) {
   constexpr int kS = hop::row_stride(KD);
   constexpr int kNB = 2 * KD;                   // 8-column blocks of o
+  // Q fragments in registers for the whole kv loop up to d=128; from
+  // shared memory at every tile above it (see the header)
+  constexpr bool kQInRegs = KD <= 8;
   extern __shared__ float4 smem4[];
   bf16* qs = reinterpret_cast<bf16*>(smem4);
   bf16* kbuf = qs + kBQ * kS;                   // two K tiles
@@ -131,7 +145,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<KD>(vbuf, vb, kv_ld, skv, d);
   hop::cp_async_commit();
 
-  uint32_t qa[KD][4];
+  uint32_t qa[kQInRegs ? KD : 1][4];
   float acc[kNB][4];
 #pragma unroll
   for (int nb = 0; nb < kNB; ++nb)
@@ -152,11 +166,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     hop::cp_async_commit();
     hop::cp_async_wait<1>();                    // tile j has landed
     __syncthreads();
-    if (j == 0) {
+    if constexpr (kQInRegs) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        hop::ldsm_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * kS + kk * 16 +
-                                 ((lane >> 4) << 3));
+        for (int kk = 0; kk < KD; ++kk)
+          hop::ldsm_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * kS + kk * 16 +
+                                   ((lane >> 4) << 3));
+      }
     }
     const bf16* kt = kbuf + (j & 1) * kBK * kS;
     const bf16* vt = vbuf + (j & 1) * kBK * kS;
@@ -168,13 +184,21 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+      } else {
+        hop::ldsm_x4(a, qs + (warp * 16 + (lane & 15)) * kS + kk * 16 +
+                            ((lane >> 4) << 3));
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t b[4];
         hop::ldsm_x4(b, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kS +
                             kk * 16 + (((lane >> 3) & 1) << 3));
-        hop::mma_bf16(sc[2 * np], qa[kk], b[0], b[1]);
-        hop::mma_bf16(sc[2 * np + 1], qa[kk], b[2], b[3]);
+        hop::mma_bf16(sc[2 * np], a, b[0], b[1]);
+        hop::mma_bf16(sc[2 * np + 1], a, b[2], b[3]);
       }
     }
 
@@ -394,9 +418,10 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace f32
 
-bool bad_shape(int skv, int h, int kvh, int d, int d_multiple) {
+bool bad_shape(int skv, int h, int kvh, int d, int d_multiple,
+               bool wide = false) {
   return skv <= 0 || kvh <= 0 || h % kvh != 0 || d <= 0 ||
-         d > attn::kMaxD || d % d_multiple != 0;
+         (d > attn::kMaxD && !(wide && d == kWideD)) || d % d_multiple != 0;
 }
 
 }  // namespace
@@ -418,13 +443,14 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // As flash_attention_f32 with q, k, v and o in bf16 (lse stays f32),
-// d % 8 == 0 and q, k, v, o 16-byte aligned (cp.async and vector stores).
+// d % 8 == 0 and d <= 128 or d == 160, and q, k, v, o 16-byte aligned
+// (cp.async and vector stores).
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, void* lse, int b, int s, int skv, int h,
                          int kvh, int d, int causal, float scale,
                          void* stream) {
   if (b <= 0 || s <= 0) return 0;
-  if (bad_shape(skv, h, kvh, d, 8))
+  if (bad_shape(skv, h, kvh, d, 8, true))
     return static_cast<int>(cudaErrorInvalidValue);
   if (d <= 32)
     return launch_bf16<2>(q, k, v, o, lse, b, s, skv, h, kvh, d, causal,
@@ -435,8 +461,11 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
   if (d <= 80)
     return launch_bf16<5>(q, k, v, o, lse, b, s, skv, h, kvh, d, causal,
                           scale, stream);
-  return launch_bf16<8>(q, k, v, o, lse, b, s, skv, h, kvh, d, causal, scale,
-                        stream);
+  if (d <= 128)
+    return launch_bf16<8>(q, k, v, o, lse, b, s, skv, h, kvh, d, causal,
+                          scale, stream);
+  return launch_bf16<kWideD / 16>(q, k, v, o, lse, b, s, skv, h, kvh, d,
+                                  causal, scale, stream);
 }
 
 }  // extern "C"

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +34,9 @@ launches = 0
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 MAX_HEAD_DIM = 128
+#: head dims above ``MAX_HEAD_DIM`` an entry takes: the bf16 kernel's
+#: instance for Zamba2's shared attention (2 x 2,560 / 32 heads)
+WIDE_HEAD_DIMS = {torch.float32: (), torch.bfloat16: (160,)}
 #: the head dim must be a multiple of this: 16-byte rows of the dtype
 #: (bf16 rows are copied with ``cp.async`` in 16-byte pieces)
 HEAD_DIM_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
@@ -75,11 +78,11 @@ def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"GQA grouping")
     if k.shape[1] == 0:
         raise ValueError("flash kernel needs at least one kv position")
-    mult = HEAD_DIM_MULTIPLE[q.dtype]
-    if d % mult != 0 or d > MAX_HEAD_DIM:
+    mult, wide = HEAD_DIM_MULTIPLE[q.dtype], WIDE_HEAD_DIMS[q.dtype]
+    if d % mult != 0 or (d > MAX_HEAD_DIM and d not in wide):
         raise ValueError(f"flash kernel takes a {q.dtype} head_dim that is "
-                         f"a multiple of {mult} and at most {MAX_HEAD_DIM}; "
-                         f"got {d}")
+                         f"a multiple of {mult} and at most {MAX_HEAD_DIM}"
+                         f"{f', or one of {wide}' if wide else ''}; got {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel needs contiguous q, k and v")
     check_aligned("flash", q, k, v)
@@ -95,13 +98,14 @@ def validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True
+                        causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [b,s,h,d]; k,v [b,skv,kvh,d] -> (o [b,s,h,d] in q's dtype,
-    lse [b,h,s] f32)."""
+    lse [b,h,s] f32, the log-sum-exp of the scaled scores). The scores
+    are scaled by ``scale``, 1/sqrt(d) where it is None."""
     global launches
     if q.device.type in _build.PLAIN_DEVICES:
-        return flash_attention_ref(q, k, v, causal)
+        return flash_attention_ref(q, k, v, causal, scale)
     # models.attention_flash.FlashAttention gives it a backward (its
     # forward runs with grad off); a bare call under autograd refuses
     _build.refuse_autograd("flash_attention", (q, k, v))
@@ -117,7 +121,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), b, s, skv, h, kvh, d, int(bool(causal)),
-                 1.0 / math.sqrt(d), stream)
+                 1.0 / math.sqrt(d) if scale is None else float(scale),
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: CUDA error {err} "
                            f"at q {tuple(q.shape)} k {tuple(k.shape)} "

@@ -67,12 +67,13 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True
+                        causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [b,s,h,d]; k,v [b,skv,kvh,d] -> (o [b,s,h,d], lse [b,h,s]).
 
     GQA (query head i reads kv head i // (h/kvh)); causal masks kv
-    position j > query position i. o is in q's dtype, lse (the row
+    position j > query position i. Scores are scaled by ``scale``,
+    1/sqrt(d) where it is None. o is in q's dtype, lse (the row
     log-sum-exp of the scaled scores, what the flash recurrence keeps
     for its backward) in f32. The reference's oracle returns o only.
     """
@@ -80,8 +81,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.reshape(b, s, kvh, g, d)
-    sc = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) \
-        / math.sqrt(d)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    sc = sc / math.sqrt(d) if scale is None else sc * scale
     if causal:
         pos_q = torch.arange(s, device=q.device)
         pos_k = torch.arange(skv, device=q.device)

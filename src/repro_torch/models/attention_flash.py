@@ -23,7 +23,7 @@ Shapes: q [b, s, h, d]; k, v [b, skv, kvh, d]; GQA via h = g * kvh.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -53,8 +53,10 @@ def _grouped(x: Tensor, kvh: int) -> Tensor:
 
 def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
               do: Tensor, causal: bool, q_chunk: int = 1024,
-              kv_chunk: int = 2048) -> Tuple[Tensor, Tensor, Tensor]:
-    """(dq, dk, dv) in the inputs' dtypes, from o's cotangent ``do``.
+              kv_chunk: int = 2048, scale: Optional[float] = None
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) in the inputs' dtypes, from o's cotangent ``do``;
+    ``scale`` is the forward's (1/sqrt(d) where it is None).
 
     For each kv block and each q block: P = exp(S - lse) recomputed,
     dP = dO V^T, dS = P (dP - delta) scale with delta = rowsum(dO o);
@@ -64,7 +66,8 @@ def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     b, s, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     qc, kc = _chunks(s, q_chunk), _chunks(skv, kv_chunk)
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     qg, og, dog = (_grouped(x, kvh) for x in (q, o, do))
     kg = k.permute(0, 2, 1, 3).float()                   # [b, kvh, skv, d]
     vg = v.permute(0, 2, 1, 3).float()
@@ -99,18 +102,21 @@ def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
 
 
 class FlashAttention(torch.autograd.Function):
-    """(q, k, v, causal, q_chunk, kv_chunk) -> (o, lse [b, kvh, g, s]).
-    The chunks set the backward's blocks; the kernel picks its own."""
+    """(q, k, v, causal, q_chunk, kv_chunk, scale) -> (o, lse [b, kvh,
+    g, s]). The chunks set the backward's blocks; the kernel picks its
+    own. ``scale`` multiplies the scores (1/sqrt(d) where it is None)
+    in the forward and the backward alike."""
 
     @staticmethod
     def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                q_chunk: int, kv_chunk: int) -> Tuple[Tensor, Tensor]:
-        o, lse = _flash.flash_attention_fwd(q, k, v, causal)
+                q_chunk: int, kv_chunk: int,
+                scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
+        o, lse = _flash.flash_attention_fwd(q, k, v, causal, scale)
         b, s, h, _ = q.shape
         kvh = k.shape[2]
         lse = lse.view(b, kvh, h // kvh, s)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.blocks = (causal, q_chunk, kv_chunk)
+        ctx.blocks = (causal, q_chunk, kv_chunk, scale)
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -122,12 +128,12 @@ class FlashAttention(torch.autograd.Function):
                 "reference's custom VJP; lse takes no gradient")
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:
-            return None, None, None, None, None, None
-        causal, q_chunk, kv_chunk = ctx.blocks
+            return None, None, None, None, None, None, None
+        causal, q_chunk, kv_chunk, scale = ctx.blocks
         with record_function(SPAN_BACKWARD):
             dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal, q_chunk,
-                                   kv_chunk)
-        return dq, dk, dv, None, None, None
+                                   kv_chunk, scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_fwd(q: Tensor, k: Tensor, v: Tensor,

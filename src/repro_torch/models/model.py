@@ -1,7 +1,9 @@
 """Model facade: one object per architecture config.
 
 Port of the JAX package's ``repro/models/model.py``: init, loss,
-forward and decode for every family of the ten architectures. The
+forward and decode for every family of the ten architectures; init,
+loss and forward of the published Zamba2 (``family == "zamba2"``,
+``models/zamba2.py``), which has no decode path. The
 modality frontends (pixtral, musicgen) are stubs as in the reference: a
 batch carries precomputed patch or frame embeddings ``prefix_embeds``
 [b, P, d_model] that feed the backbone.
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as T
+from repro_torch.models import zamba2 as Z
 from repro_torch.models.transformer import PREFIX_LEN
 from repro_torch.tree import Tree
 
@@ -50,6 +53,12 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
+def _arch(cfg: ModelConfig):
+    """The module that builds ``cfg``'s family: ``models/zamba2.py`` for
+    the published Zamba2, ``models/transformer.py`` for the others."""
+    return Z if cfg.family == Z.FAMILY else T
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -59,21 +68,21 @@ class Model:
         seed)``, made on ``device`` (CUDA by default)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return T.init_params(self.cfg, gen)
+        return _arch(self.cfg).init_params(self.cfg, gen)
 
     def init_shape(self) -> Tree:
         """The parameters as tensors on the ``meta`` device, without
         allocating."""
-        return T.init_params(self.cfg, _MetaGenerator())
+        return _arch(self.cfg).init_params(self.cfg, _MetaGenerator())
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
         """Next-token cross entropy (+ MoE aux) of ``batch`` (``tokens``,
         ``labels``, optional ``prefix_embeds`` and ``loss_mask``)."""
-        return T.lm_loss(params, batch, self.cfg)
+        return _arch(self.cfg).lm_loss(params, batch, self.cfg)
 
     def forward(self, params: Tree, tokens: torch.Tensor, **kw):
-        return T.forward(params, tokens, self.cfg, **kw)
+        return _arch(self.cfg).forward(params, tokens, self.cfg, **kw)
 
     @property
     def has_frontend(self) -> bool:

@@ -70,8 +70,11 @@ def linear_scan_step(q: Tensor, k: Tensor, v: Tensor, log_a: Tensor,
 # Depthwise causal conv (width-w, shift-add form)
 # ---------------------------------------------------------------------------
 
-def causal_conv(x: Tensor, w: Tensor, state: Optional[Tensor] = None):
-    """x: [b, S, c]; w: [width, c] depthwise taps. Returns y same shape.
+def causal_conv(x: Tensor, w: Tensor, state: Optional[Tensor] = None,
+                bias: Optional[Tensor] = None):
+    """x: [b, S, c]; w: [width, c] depthwise taps (``w[-1]`` weighs the
+    current step); ``bias`` [c] added before the SiLU. Returns y same
+    shape.
 
     If ``state`` [b, width-1, c] is given, runs in streaming mode (decode):
     x is [b, 1, c] and the updated state is returned as well.
@@ -80,11 +83,15 @@ def causal_conv(x: Tensor, w: Tensor, state: Optional[Tensor] = None):
     if state is not None:
         buf = torch.cat([state, x], dim=1)             # [b, width, c]
         y = torch.einsum("bwc,wc->bc", buf, w)[:, None, :]
+        if bias is not None:
+            y = y + bias
         return F.silu(y), buf[:, 1:, :]
     acc = x * w[-1]
     for i in range(1, width):
         shifted = F.pad(x, (0, 0, i, 0))[:, :-i, :]
         acc = acc + shifted * w[width - 1 - i]
+    if bias is not None:
+        acc = acc + bias
     return F.silu(acc)
 
 
@@ -125,6 +132,52 @@ def mamba_split(params: dict, x: Tensor, cfg: ModelConfig):
     return torch.split(zxbcdt, [inner, inner, 2 * n, nheads], dim=-1)
 
 
+def mamba_ssd(conv_out: Tensor, dt_raw: Tensor, a: Tensor, params: dict,
+              cfg: ModelConfig, nheads: int, headdim: int,
+              dt_min: float = 0.0, h0: Optional[Tensor] = None
+              ) -> Tuple[Tensor, Tensor]:
+    """The Mamba2 mixer between the conv and the gate: ``conv_out`` [b,
+    S, inner + 2 n] (x, B, C after the conv), ``dt_raw`` [b, S, nheads],
+    ``a`` = A [nheads] (< 0) -> (y [b, S, inner] with the D skip,
+    h_final [b, nheads, n, headdim] f32).
+
+    dt = softplus(dt_raw + dt_bias), at least ``dt_min``; the scan maps
+    (q, k, v, log a) = (C, B, dt x, A dt), B and C one group shared by
+    the heads (views broadcast over them, no copy).
+    """
+    b, s, _ = conv_out.shape
+    inner = nheads * headdim
+    n = (conv_out.shape[-1] - inner) // 2
+    xs, bmat, cmat = torch.split(conv_out, [inner, n, n], dim=-1)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    if dt_min > 0:
+        dt = torch.clamp(dt, min=dt_min)
+    log_decay = (dt * a).transpose(1, 2)              # [b, nheads, S]
+
+    xh = xs.reshape(b, s, nheads, headdim).transpose(1, 2)
+    kk = bmat[:, None].expand(b, nheads, s, n)
+    qq = cmat[:, None].expand(b, nheads, s, n)
+    vv = xh * dt.transpose(1, 2)[..., None].to(xh.dtype)
+
+    if h0 is None:
+        h0 = torch.zeros((b, nheads, n, headdim), dtype=torch.float32,
+                         device=conv_out.device)
+    y, h_final = _scan(cfg, qq, kk, vv, log_decay, h0)
+    y = y + xh * params["d_skip"][None, :, None, None].to(xh.dtype)
+    return y.transpose(1, 2).reshape(b, s, inner), h_final
+
+
+def gated_rmsnorm(y: Tensor, z: Tensor, weight: Tensor,
+                  eps: float = 1e-5) -> Tensor:
+    """Mamba2's gated RMSNorm of one group: ``y silu(z)`` in f32,
+    normalized over the last axis, cast back to y's dtype and scaled by
+    ``weight``."""
+    dt = y.dtype
+    x = y.float() * F.silu(z.float())
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return x.to(dt) * weight.to(dt)
+
+
 def mamba_block(params: dict, x: Tensor, cfg: ModelConfig,
                 h0: Optional[Tensor] = None):
     """x: [b, S, d] -> (y [b, S, d], h_final, conv_state).
@@ -135,32 +188,14 @@ def mamba_block(params: dict, x: Tensor, cfg: ModelConfig,
     ``mamba_decode_step`` without replaying the prompt. B and C go to
     the scan as views broadcast over the heads (no copy).
     """
-    b, s, _ = x.shape
-    n = cfg.ssm_state
-    inner, headdim, nheads = mamba_dims(cfg)
+    _, headdim, nheads = mamba_dims(cfg)
     z, xs, bc, dt_raw = mamba_split(params, x, cfg)
     conv_in = torch.cat([xs, bc], dim=-1)
     cw = cfg.ssm_conv_width
     conv_state = F.pad(conv_in, (0, 0, cw - 1, 0))[:, -(cw - 1):]
     conv_out = causal_conv(conv_in, params["conv_w"])
-    xs, bmat, cmat = torch.split(conv_out, [inner, n, n], dim=-1)
-
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    a = -torch.exp(params["a_log"])                   # [nheads], < 0
-    log_decay = (dt * a).transpose(1, 2)              # [b, nheads, S]
-
-    xh = xs.reshape(b, s, nheads, headdim).transpose(1, 2)
-    # B/C shared across heads (ngroups=1)
-    kk = bmat[:, None].expand(b, nheads, s, n)
-    qq = cmat[:, None].expand(b, nheads, s, n)
-    vv = xh * dt.transpose(1, 2)[..., None].to(xh.dtype)
-
-    if h0 is None:
-        h0 = torch.zeros((b, nheads, n, headdim), dtype=torch.float32,
-                         device=x.device)
-    y, h_final = _scan(cfg, qq, kk, vv, log_decay, h0)
-    y = y + xh * params["d_skip"][None, :, None, None].to(xh.dtype)
-    y = y.transpose(1, 2).reshape(b, s, inner)
+    y, h_final = mamba_ssd(conv_out, dt_raw, -torch.exp(params["a_log"]),
+                           params, cfg, nheads, headdim, h0=h0)
     y = y * F.silu(z)
     return y @ params["out_proj"], h_final, conv_state
 

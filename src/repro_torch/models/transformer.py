@@ -60,6 +60,10 @@ SPAN_RECOMPUTE = "model.recompute"
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` for a family or frontend the model lacks."""
+    if cfg.family == "zamba2":
+        raise ValueError("the published Zamba2 family trains through "
+                         "models/zamba2.py (Model.init, loss and forward); "
+                         "its decode and serving are out of scope")
     if cfg.family not in DENSE_FAMILIES + RECURRENT_FAMILIES:
         raise ValueError(cfg.family)
     if cfg.frontend != "none" and cfg.frontend not in PREFIX_LEN:
@@ -325,16 +329,21 @@ def lm_loss(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig,
     over every position, or over the positions ``loss_mask`` keeps."""
     logits, aux, _ = forward(params, batch["tokens"], cfg,
                              prefix_embeds=batch.get("prefix_embeds"))
+    return token_nll_mean(logits, batch["labels"],
+                          batch.get("loss_mask")) + aux_coef * aux
+
+
+def token_nll_mean(logits: Tensor, labels: Tensor,
+                   mask: Optional[Tensor] = None) -> Tensor:
+    """Cross entropy of ``logits`` [..., V] against ``labels`` [...]: the
+    mean over every position, or over the positions ``mask`` keeps."""
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - picked
-    mask = batch.get("loss_mask")
     if mask is None:
-        loss = nll.mean()
-    else:
-        mask = mask.to(nll.dtype)
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss + aux_coef * aux
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
