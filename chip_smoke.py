@@ -10,7 +10,8 @@ Phases, each printing JSON lines:
                 for matmuls and cuDNN so f32 means f32.
 2. build      — nvcc builds every kernel under
                 src/repro_torch/kernels/csrc/, one process per source,
-                all started together; a ``ptxas`` line gives the
+                all started together, the libraries already built too
+                (so the report is whole); a ``ptxas`` line gives the
                 registers, spill bytes and static shared memory of each
                 group-mean, flash, decode, SSD-scan and MAR-rounds
                 kernel.
@@ -223,11 +224,14 @@ Phases, each printing JSON lines:
                 through ``launch.train.main`` with the train phase's
                 traffic (4 peers on (2, 2), batch 2 of 128, 6 steps): the
                 SSD-scan kernel forward in every Mamba2 / mLSTM layer and
-                again in its remat recompute, its backward the plain
-                chunked scan's VJP (``_SsdScanFn``); the train phase's
-                gates, with 360 SSD-scan and 36 flash launches a zamba2
-                step (the shared attention block is not rematerialized)
-                and 168 SSD-scan launches an xlstm step, 38 and 32
+                again in its remat recompute, its backward the backward
+                kernel for zamba2's Mamba2 (dk = dv = 64) and the plain
+                chunked scan's VJP for xlstm's mLSTM (``_SsdScanFn``);
+                the train phase's gates, with 360 SSD-scan, 360
+                backward-kernel (180 calls) and 36 flash launches a
+                zamba2 step (the shared attention block is not
+                rematerialized) and 168 SSD-scan and no backward-kernel
+                launches an xlstm step, 38 and 32
                 mar_rounds launches a step (one a leaf), and the ledgers
                 of TRAIN_RECURRENT.
    train_zamba2 — the published Zamba2-2.7B (``models/zamba2.py``,
@@ -298,10 +302,17 @@ a 64-step chunk (zamba2, S=65 and 129) and with v at an odd time stride
 kernel runs, within 1e-4 and 2e-2 relative to the largest |y| and |h|,
 with median times of the path rows (both types) beside the bound. An
 ``ssd_scan_grad`` phase then holds the scan's autograd Function (the
-kernel forward, the plain VJP backward) against autograd of the plain
+kernel forward; the backward kernel for zamba2's bf16 calls, the plain
+VJP for xlstm's and f32's) against autograd of the plain
 sequential scan at the trainer's two shapes (b=2, S=128), in bf16 and
 f32, with a nonzero h0 and both cotangents, and prints the forward
-kernel's time beside the plain backward's. A ``mar_rounds`` phase holds
+kernel's time beside the plain backward's. An ``ssd_scan_bwd`` phase
+holds the backward kernel against the plain VJP at the published
+Zamba2's call (b=1, S=4,096, 80 heads, bf16, B and C at head stride 0):
+dq, dk and dv within 8e-3 of each head's peak, dlog_a within 2e-3 of
+its peak, no spills, its time beside its bound (67.9 us, FLOPs at the
+forward's 256-step chunks, as ``ssd_scan_bwd_roofline`` counts them) and
+the plain VJP's. A ``mar_rounds`` phase holds
 the device aggregation's kernel against its plain version at the train
 phase's state (musicgen-medium's theta and m, 4 peers on (2, 2), 43.6
 GB on the card), leaf by leaf under a full mask and one that empties a
@@ -517,28 +528,32 @@ TRAIN_COMM_BYTES = 523_693_817_856
 # zamba2's shared attention block, per peer, in the forward and again in
 # the remat recompute — except zamba2's shared attention block, which the
 # reference does not rematerialize (jax.checkpoint wraps the Mamba2
-# blocks only), so flash runs once per application a peer. The
+# blocks only), so flash runs once per application a peer — and the
+# SSD backward kernel's launches, two a Mamba2 layer and peer (zamba2's
+# dk = dv = 64; xlstm's mLSTM, dk 512, takes the plain VJP). The
 # parameters are the tree's, as Model.init
 # draws them (the reference's ModelConfig.param_count() is an estimate
 # here: 2,194,295,840 and 527,905,792)
 TRAIN_RECURRENT = {
     "zamba2-2.7b": dict(params=2_063_209_520, comm_bytes=594_205_378_560,
-                        ssd_per_step=45 * 2 * 4, flash_per_step=9 * 4,
-                        mar_rounds_per_step=19 * 2),
+                        ssd_per_step=45 * 2 * 4, ssd_bwd_per_step=45 * 4 * 2,
+                        flash_per_step=9 * 4, mar_rounds_per_step=19 * 2),
     "xlstm-350m": dict(params=518_640_640, comm_bytes=149_704_704_000,
-                       ssd_per_step=21 * 2 * 4, flash_per_step=0,
-                       mar_rounds_per_step=16 * 2),
+                       ssd_per_step=21 * 2 * 4, ssd_bwd_per_step=0,
+                       flash_per_step=0, mar_rounds_per_step=16 * 2),
 }
 # The published Zamba2-2.7B (models/zamba2.py; the benchmark's
 # configuration zamba2-2.7b, 2,662,214,560 parameters in 22 leaves)
 # trained as the cell zamba2-2.7b.fl_train_4k trains it: 2 peers on the
 # grid (2,), one local step of 1 x 4,096 tokens; per step, flash in the
 # forward and remat recompute of the 9 shared-block applications of each
-# peer, the SSD scan in those of the 54 Mamba2 layers, mar_rounds once a
-# leaf of theta and of m
+# peer, the SSD scan in those of the 54 Mamba2 layers and its backward
+# kernel once a layer and peer (two launches), mar_rounds once a leaf of
+# theta and of m
 ZAMBA2_PUBLISHED = dict(config="zamba2-2.7b", peers=2, seq=4096, steps=3,
                         params=2_662_214_560, flash_per_step=9 * 2 * 2,
-                        ssd_per_step=54 * 2 * 2, mar_rounds_per_step=22 * 2)
+                        ssd_per_step=54 * 2 * 2, ssd_bwd_per_step=54 * 2 * 2,
+                        mar_rounds_per_step=22 * 2)
 # The federation_large_n runs: the paper's text model under adaptive
 # group sizing at N = 125 on each transport, and clustered placement at
 # N = 64 on shuffled regions; the kernel on, 20 iterations. The
@@ -2302,7 +2317,7 @@ def phase_serve(torch, smi):
 
 
 #: name stems of the port's own kernels in a profiler trace
-PORT_KERNELS = ("flash_fwd_", "decode_split_", "ssd_scan_",
+PORT_KERNELS = ("flash_fwd_", "decode_split_", "ssd_scan_", "ssd_bwd_",
                 "group_mean_")
 
 
@@ -2569,7 +2584,9 @@ SSD_TRAIN = dict(b=2, s=128)
 
 def phase_ssd_scan_grad(torch, flush):
     """The SSD scan's autograd Function on the card (``_SsdScanFn``: the
-    kernel forward, the plain chunked scan's VJP backward) against
+    kernel forward; the backward kernel for zamba2's bf16 calls,
+    ``ssd_scan._bwd_takes_kernel``, the plain chunked scan's VJP for the
+    others) against
     autograd of the plain sequential scan (``ssd_scan_ref``) at both
     trainer shapes (zamba2: b=2, 80 heads, S=128, dk=dv=64, B and C one
     [b, 1, S, 64] leaf broadcast at head stride 0; xlstm: b=2, 4 heads,
@@ -2676,6 +2693,82 @@ def phase_ssd_scan_grad(torch, flush):
             rows.append(row)
             emit("ssd_scan_grad", **row)
     return rows
+
+
+def phase_ssd_scan_bwd(torch, flush, ptxas=()):
+    """The SSD scan's backward kernel (``ssd_scan._bwd_launch``, kernels
+    ``ssd_bwd_*``, two launches) against the plain ``ssd_scan_bwd`` on
+    the same inputs at the call of the cell zamba2-2.7b.fl_train_4k: b 1,
+    S 4,096, 80 heads, dk = dv = 64, bf16, B and C one [S, 64] draw at
+    head stride 0 (``_ssd_inputs``), h0 zero and no dh_final, as the
+    trainer's Mamba2 layers call it. Gates: dq, dk and dv within 8e-3 of
+    each (batch, head)'s own peak (a one-ulp bf16 flip is at most 2^-7
+    of it), dlog_a within 2e-3 of its whole peak, and ptxas's report of
+    both ``ssd_bwd_`` kernels (``ptxas``: the ``ptxas_summary`` entries;
+    ``main`` rebuilds every library to have them) present and without
+    spills. Prints the kernel's time (L2 flushed) beside its bound
+    (FLOPs, 67.9 us: ``ssd_scan_bwd_roofline``'s cost of the cell's
+    call, at the forward's 256-step chunks; at the kernel's own 64-step
+    chunks the bytes bound it, at 64.1 us), the plain
+    backward's time, and those kernels' registers."""
+    from portbench import spec
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import ssd_scan_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    s = ZAMBA2_PUBLISHED["seq"]
+    q, k, v, log_a, h0 = _ssd_inputs(torch, gen, "zamba2", s,
+                                     torch.bfloat16, 0.0)
+    dy = torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype)
+    check(ss._bwd_takes_kernel(q, v, log_a, h0),
+          "ssd_scan_bwd: the cell's call does not take the kernel")
+    got = ss._bwd_launch(q, k, v, log_a, h0, dy, None, False)
+    want = ssd_scan_bwd(q, k, v, log_a, h0, dy, None)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w, tol in zip(("dq", "dk", "dv", "dlog_a"), got, want,
+                               (8e-3, 8e-3, 8e-3, 2e-3)):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"ssd_scan_bwd: {name} is {g.dtype} {tuple(g.shape)}")
+        check(bool(torch.isfinite(g.float()).all()),
+              f"ssd_scan_bwd: {name} not finite")
+        peak = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        if name == "dlog_a":
+            rel, at = err / max(peak, 1e-30), None
+        else:
+            rel, at = _worst_head_rel(torch, g.float(), w.float())
+        errs[name] = {"max_abs_err": err, "rel_err": rel, "worst_head": at,
+                      "tol": tol, "ref_max_abs": peak}
+        check(rel <= tol, f"ssd_scan_bwd: {name} relative error {rel} "
+                          f"(head {at}) > {tol}")
+    kernels = [r for r in ptxas if "ssd_bwd_" in r["kernel"]]
+    for stem in ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel"):
+        check(any(stem in r["kernel"] for r in kernels),
+              f"ssd_scan_bwd: ptxas reported no {stem}: {kernels}")
+    for r in kernels:
+        check(r.get("spill_stores", 0) == 0 and r.get("spill_loads", 0) == 0,
+              f"ssd_scan_bwd: {r['kernel']} spills: {r}")
+    b, nh, _, dk = q.shape
+    bench = spec.Bench()
+    flops, nbytes = bench.reader("ssd_scan_bwd_roofline").call_cost(
+        bench.config(ZAMBA2_PUBLISHED["config"]), {"batch": b, "seq": s})
+    bound = attention_bound_ms(nbytes, flops, True)
+    kernel_ms = device_ms(torch, lambda: ss._bwd_launch(
+        q, k, v, log_a, h0, dy, None, False), flush=flush)
+    plain_ms = device_ms(torch, lambda: ssd_scan_bwd(
+        q, k, v, log_a, h0, dy, None), reps=5, flush=flush,
+        spin=20_000_000)
+    row = {"b": b, "nh": nh, "S": s, "dk": dk, "dv": v.shape[3],
+           "dtype": "bfloat16", "qk_head_stride": q.stride(1),
+           "grads": errs, "max_abs_err": max(e["max_abs_err"]
+                                             for e in errs.values()),
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": max(bound.values()), **bound,
+           **shares(kernel_ms, max(bound.values()), None),
+           "ptxas": kernels}
+    emit("ssd_scan_bwd", **row)
+    return row
 
 
 def _recurrent_prompts(vocab: int, n: int, length: int):
@@ -3208,10 +3301,11 @@ def _train_full_width(torch, smi, phase: str, args, expect: dict,
     its command line), the state updated in place. After every step
     every peer's theta and m are bit-equal (full participation over
     (2, 2) is a global mean broadcast to all); each kernel of ``expect``
-    (``{kernel: launches a step}``) launches that often a step; the
+    (``{kernel: launches a step}``; ``ssd_scan_bwd``: the SSD backward
+    kernel's) launches that often a step; the
     ledger is ``expect["comm_bytes"]``; the peak is under the card's
     memory. Then one more step under ``torch.profiler`` (with the SSD
-    scan's plain backward under its own label where the scan runs).
+    scan's backward under its own label where the scan runs).
     With ``record`` (a dict), the state's digests after each of the
     first TRAIN_MESH_STEPS steps go to ``record["digests"]`` and the
     median ms a step to ``record["median_ms"]``, for train_mesh.
@@ -3222,7 +3316,7 @@ def _train_full_width(torch, smi, phase: str, args, expect: dict,
 
     from repro_torch.core.fl_device import SPAN_AGGREGATE, SPAN_LOCAL
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import SPAN_BACKWARD
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
@@ -3247,7 +3341,8 @@ def _train_full_width(torch, smi, phase: str, args, expect: dict,
         if info["t"] + 1 < n_steps:
             return
         # the main path ends here: read its counts before the extra step
-        seen["launches"] = ops.launch_counts()
+        seen["launches"] = {**ops.launch_counts(),
+                            "ssd_scan_bwd": ss.backward_launches}
         seen["ledger"] = info["ledger"].total_bytes
         seen["peak"] = torch.cuda.max_memory_allocated()
         seen["params_per_peer"] = sum(x[0].numel() for x in
@@ -3259,18 +3354,19 @@ def _train_full_width(torch, smi, phase: str, args, expect: dict,
             info["step_fn"](state, info["batch"])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        labels = (SPAN_LOCAL, SPAN_AGGREGATE, SPAN_BACKWARD)
+        labels = (SPAN_LOCAL, SPAN_AGGREGATE, ss.SPAN_BACKWARD)
         seen["profile"] = {
             "local_update": _label_profile(torch, prof, SPAN_LOCAL, 1),
             "aggregate": _label_profile(torch, prof, SPAN_AGGREGATE, 1),
             **_device_profile(torch, prof, wall_us, 1, f"{phase} profile",
                               labels=labels)}
-        if expect.get("ssd_scan"):      # the scan's plain backward
+        if expect.get("ssd_scan"):      # the scan's backward
             seen["profile"]["ssd_scan_backward"] = _label_profile(
-                torch, prof, SPAN_BACKWARD, 1)
+                torch, prof, ss.SPAN_BACKWARD, 1)
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    ss.backward_launches = 0
     t0 = time.perf_counter()
     check(train.main(list(args), on_step=on_step) == 0,
           f"{phase}: main did not return 0")
@@ -3336,7 +3432,7 @@ def phase_train(torch, smi, record=None):
           f"unexpected config {cfg}")
     return _train_full_width(torch, smi, "train", TRAIN_ARGS, {
         "flash_attention": TRAIN_FLASH_PER_STEP, "ssd_scan": 0,
-        "mar_rounds": TRAIN_MAR_ROUNDS_PER_STEP,
+        "ssd_scan_bwd": 0, "mar_rounds": TRAIN_MAR_ROUNDS_PER_STEP,
         "comm_bytes": TRAIN_COMM_BYTES}, record)
 
 
@@ -3346,9 +3442,12 @@ def phase_train_recurrent(torch, smi):
     (21 mLSTM + 3 sLSTM, d 1024; 518,640,640) trained at full width,
     bf16, seed 0, with the musicgen run's traffic (TRAIN_ARGS): the
     SSD-scan kernel in every Mamba2 / mLSTM layer's forward and remat
-    recompute, flash in zamba2's shared block, the backward through the
-    plain chunked scan's VJP (``_train_full_width``'s gates, the launch
-    counts of TRAIN_RECURRENT). Returns the summed launch counts."""
+    recompute, flash in zamba2's shared block, the scan's backward
+    through its kernel (zamba2's Mamba2: dk = dv = 64, two launches a
+    layer and peer) or the plain
+    chunked scan's VJP (xlstm's mLSTM: dk 512) (``_train_full_width``'s
+    gates, the launch counts of TRAIN_RECURRENT). Returns the summed
+    launch counts."""
     from repro_torch.configs import get_config
 
     totals = {}
@@ -3360,6 +3459,7 @@ def phase_train_recurrent(torch, smi):
         args = ("--arch", arch, *TRAIN_ARGS[2:])
         launches = _train_full_width(torch, smi, "train_recurrent", args, {
             "ssd_scan": want["ssd_per_step"],
+            "ssd_scan_bwd": want["ssd_bwd_per_step"],
             "flash_attention": want["flash_per_step"],
             "mar_rounds": want["mar_rounds_per_step"],
             "comm_bytes": want["comm_bytes"], "params": want["params"]})
@@ -3376,15 +3476,17 @@ def phase_train_zamba2(torch, smi):
     token batches. Gates: the counted parameters, a finite loss, both
     peers' theta and m bit-equal after every step (a group of two means
     to one value), the launch counts of flash (d = 160 at Zamba2's
-    scale), ssd_scan and mar_rounds, counted from 0 just before the
-    first step, and the peak under the card's memory. Returns the
-    launch counts."""
+    scale), ssd_scan, the SSD backward kernel (``ssd_scan_bwd``, two
+    launches a call) and mar_rounds, counted from 0 just before the
+    first step, and the peak under the card's memory. Returns the launch
+    counts."""
     import gc
 
     from portbench import spec
     from repro_torch.core.fl_device import init_fl_state, make_fl_train_step
     from repro_torch.core.moshpit import plan_grid
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models.model import Model
     from repro_torch.tree import tree_leaves
 
@@ -3411,6 +3513,7 @@ def phase_train_zamba2(torch, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    ss.backward_launches = 0
     steps = []
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
@@ -3423,12 +3526,13 @@ def phase_train_zamba2(torch, smi):
                       and _bit_equal_peers(torch, tree_leaves,
                                            state["momentum"])})
         emit("train_zamba2_step", **steps[-1])
-    launches = ops.launch_counts()
+    launches = {**ops.launch_counts(), "ssd_scan_bwd": ss.backward_launches}
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     n = len(steps)
     expect = {"flash_attention": z["flash_per_step"] * n,
               "ssd_scan": z["ssd_per_step"] * n,
+              "ssd_scan_bwd": z["ssd_bwd_per_step"] * n,
               "mar_rounds": z["mar_rounds_per_step"] * n}
     emit("train_zamba2", config=z, leaves=len(tree_leaves(state["params"])),
          losses=[st["loss"] for st in steps], first_step_ms=steps[0]["ms"],
@@ -3961,14 +4065,15 @@ def main() -> None:
                          f"built for sm_90a")
 
     t0 = time.perf_counter()
-    report = _build.build_all()
+    report = _build.build_all(force=True)
     emit("build", seconds=time.perf_counter() - t0,
          sources=_build.sources(),
          ptxas={k: [ln for ln in v["log"].splitlines() if "ptxas" in ln]
                 for k, v in report.items()})
-    emit("ptxas", kernels=ptxas_summary(
-        report, ["group_mean", "flash_attention", "decode_attention",
-                 "ssd_scan", "mar_rounds"]))
+    ptxas = ptxas_summary(report, ["group_mean", "flash_attention",
+                                   "decode_attention", "ssd_scan",
+                                   "mar_rounds"])
+    emit("ptxas", kernels=ptxas)
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     # what the timing method reads for one near-empty kernel: the floor
@@ -3983,6 +4088,7 @@ def main() -> None:
     decode_rows = phase_decode(torch, flush)
     ssd_rows = phase_ssd_scan(torch, flush)
     phase_ssd_scan_grad(torch, flush)
+    ssd_bwd_row = phase_ssd_scan_bwd(torch, flush, ptxas)
     mar_row = phase_mar_rounds(torch, flush)
     del flush
     phase_vision(torch)
@@ -4020,7 +4126,9 @@ def main() -> None:
     # training steps, the musicgen steps on a DTensor state (train_mesh)
     # and the in-process socket trainer's steps; paged: starcoder2 and
     # moonshot decode steps; ssd_scan: the zamba2 and xlstm prefills and
-    # training steps and the published Zamba2's; mar_rounds: its phase's
+    # training steps and the published Zamba2's; ssd_scan_bwd: the
+    # zamba2 training steps' and the published Zamba2's backward kernel
+    # launches; mar_rounds: its phase's
     # row, the musicgen, zamba2, xlstm, published Zamba2 and train_mesh
     # (a) training steps and the in-process socket trainer's)
     qs = [r for r in round_rows if r["kind"] == "quickstart"]
@@ -4059,6 +4167,11 @@ def main() -> None:
                      recurrent_launches["ssd_scan"]
                      + recurrent_train_launches["ssd_scan"]
                      + zamba2_launches["ssd_scan"], ssd_rows[0]),
+        kernel_entry("ssd_scan_bwd",
+                     "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "none: the Pallas scan has no backward",
+                     recurrent_train_launches["ssd_scan_bwd"]
+                     + zamba2_launches["ssd_scan_bwd"], ssd_bwd_row),
         kernel_entry("mar_rounds",
                      "src/repro_torch/kernels/csrc/mar_rounds.cu",
                      "src/repro/core/mar_allreduce.py:166",

@@ -62,10 +62,10 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(names: Optional[Iterable[str]] = None
+def build_all(names: Optional[Iterable[str]] = None, force: bool = False
               ) -> Dict[str, Dict[str, object]]:
     """Build every missing library of ``names`` (default: every source),
-    one ``nvcc`` per source in parallel.
+    or with ``force`` every one, one ``nvcc`` per source in parallel.
 
     Returns ``{name: {"seconds": ..., "log": ...}}`` for the sources it
     compiled (``log`` is nvcc's ``-Xptxas -v`` report: registers, shared
@@ -77,7 +77,7 @@ def build_all(names: Optional[Iterable[str]] = None
     jobs = {}
     for name in sources() if names is None else names:
         out = _library_path(name)
-        if out.exists():
+        if out.exists() and not force:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]

@@ -105,6 +105,9 @@
 // Both entries take q, k, v and log_a with their batch, head and time
 // strides (the last axis contiguous), so Mamba2's B and C, broadcast over
 // 80 heads with a head stride of 0, go in without a copy.
+//
+// The bf16 backward (ssd_bwd_bf16, kernels ssd_bwd_*) is described at its
+// namespace, `bwd`, below.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -885,6 +888,720 @@ int launch(const void* q, const void* k, const void* v, const void* log_a,
 
 }  // namespace f32
 
+// ---------------------------------------------------------------------------
+// bf16 backward: the states, then each chunk's gradients
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: the Pallas scan has no backward, and the JAX
+// package trains through the VJP of its jnp chunked_linear_scan, whose
+// plain PyTorch port (ref.ssd_scan_bwd) took ~1,400 launches and 12.8 ms
+// of device time a call at the published Zamba2's training call (b 1, S
+// 4,096, 80 heads, dk = dv = 64, bf16, B and C at head stride 0). The
+// kernels' names start with ssd_bwd_ and hold no ssd_scan_: the
+// forward's roofline reads that stem.
+//
+// Bound at that call: ~215 MB (v, dy, dq, dk, dv per head; B and C
+// once; log_a, dlog_a, h0 in f32), 64.1 us, against the chunked VJP's
+// FLOPs (per chunk 3 c^2 dk + 2 c^2 dv + 5 c dk dv multiply-adds) on the
+// bf16 tensor cores: 26.8 GFLOP, 27.1 us, at this kernel's 64-step
+// chunks. So the bytes. (ssd_scan_bwd_roofline counts the FLOPs at the
+// forward's 256-step chunks, 67.1 GFLOP and 67.9 us: a bound ~6% above
+// this one.)
+//
+// Design: two launches a call.
+//   1. ssd_bwd_states_kernel: the only sequential part, the state over
+//      the chunks of 64 steps. Half the blocks walk forward from h0 and
+//      store H at each chunk's start; the other half walk back from
+//      dh_final and store dH at each chunk's end. Both are one product
+//      a chunk (x^T (u o z), u the decay weights) on the tensor cores,
+//      the state in f32 registers; the stored states are bf16 hi + lo
+//      (the same 4 bytes as f32, ready for the next products): 2 x 42
+//      MB at the call above.
+//   2. ssd_bwd_chunk_kernel: one block per (chunk, head, batch row),
+//      5,120 at the call above, every one independent: q k^T, dy v^T,
+//      the gated products for dq, dk and dv, the ones against H and dH,
+//      and dlog_a from the chunk alone (see the kernel).
+// Precision: the bf16 inputs go into the products as they are; every
+// f32 operand (H, dH, the decay-weighted terms, dP o gate and S o gate)
+// enters as bf16 hi + lo, ~16 mantissa bits, with f32 accumulators, so
+// each gradient is at f32's level before its own rounding (at the call
+// above dq, dk, dv within one bf16 ulp of the plain VJP's in every
+// head). Decays are scanned in base 2, the causal mask selecting before
+// each exponential, as in the forward.
+// Trouble spots:
+//   1. dlog_a: the sum over the whole sequence of q . dq - k . dk pairs
+//      large terms of opposite sign (the i = j products, the decay
+//      weights against h_final . dh_final) that the hi/lo products round
+//      differently, which left dlog_a ~1e-4 of its peak off where the
+//      decay is fast. Taken from the chunk alone instead, no term
+//      enters twice.
+//   2. Registers: the chunk kernel holds a 16 x 64 f32 product, its
+//      bf16 hi/lo fragments and a 16 x 64 accumulator a warp; k q^T is
+//      computed again for dv rather than kept, and the kernel runs two
+//      blocks an SM (at three it spilled).
+//   3. Layouts: q, k, v and dy come in with their strides (B and C at
+//      head stride 0; v and dy as the model's transposed views) through
+//      16-byte cp.async copies, so the wrapper copies only what those
+//      cannot read.
+//   4. Stores: the states pass writes its 2 x 42 MB from C fragments,
+//      4 bytes a lane in eight rows; that took half its time (253 of
+//      487 us a call), so each warp stages its rows in shared memory
+//      and stores 16 bytes a lane (158 us).
+
+namespace bwd {
+
+using bf16 = __nv_bfloat16;
+using bf::ex2;
+using bf::unpack_bf16x2;
+
+constexpr int kC = 64;                       // chunk length (time steps)
+constexpr int kWarps = 4;                    // 16 rows of a chunk each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTV = 32;                      // state columns a states block
+constexpr int kStages = 3;                   // the states pass's chunk ring
+constexpr int kMaxD = 64;                    // dk and dv, each
+
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dy;               // null: a zero cotangent
+  const float* a;
+  const float* h0;
+  const float* dh;              // null: a zero cotangent
+  bf16* gq;                     // [b, nh, S, dk], contiguous
+  bf16* gk;
+  bf16* gv;                     // [b, nh, S, dv]
+  float* gla;                   // [b, nh, S]
+  float* gh0;                   // [b, nh, dk, dv]; null: not wanted
+  bf16* hs;                     // [b, nh, nc, 2, DKP, DVP]: H at each
+  bf16* dhs;                    // chunk's start, dH at its end; hi, lo
+  long long sq[3], sk[3], sv[3], sy[3], sa[3];
+  int nh, s, dk, dv, nc;
+};
+
+// The f32 pair (p0, p1) as bf16 hi plus bf16 lo, the part hi leaves out:
+// ~16 mantissa bits, for an f32 operand of a bf16 product.
+__device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = hop::pack_bf16x2(p0, p1);
+  const float2 h = unpack_bf16x2(hi);
+  lo = hop::pack_bf16x2(p0 - h.x, p1 - h.y);
+}
+
+// The chunk's decays scanned in base 2 by one warp, from `as` [64] into
+// its own `cum` row; returns the chunk's total.
+__device__ __forceinline__ float chunk_scan(const float* as, float* cum,
+                                            int lane) {
+  float x0 = as[lane] * hop::kLog2e, x1 = as[32 + lane] * hop::kLog2e;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u0 = __shfl_up_sync(hop::kFull, x0, off);
+    const float u1 = __shfl_up_sync(hop::kFull, x1, off);
+    if (lane >= off) {
+      x0 += u0;
+      x1 += u1;
+    }
+  }
+  x1 += __shfl_sync(hop::kFull, x0, 31);
+  cum[lane] = x0;
+  cum[32 + lane] = x1;
+  __syncwarp();
+  return __shfl_sync(hop::kFull, x1, 31);
+}
+
+// cp.async copies of a [64 x W] bf16 tile (rows `rs` elements apart, `w`
+// valid columns, `len` valid rows; null `src`: zeros) into shared memory
+// rows `ss` apart. `any` is a valid address for the zero-filling copies.
+template <int W>
+__device__ __forceinline__ void copy_tile(bf16* dst, int ss, const bf16* src,
+                                          long long rs, int len, int w,
+                                          const void* any, int tid) {
+  constexpr int kSeg = W / 8;
+#pragma unroll
+  for (int i = 0; i < kC * kSeg / kThreads; ++i) {
+    const int idx = tid + i * kThreads;
+    const int r = idx / kSeg, col = (idx % kSeg) * 8;
+    const bool ok = src != nullptr && r < len && col < w;
+    hop::cp_async16(dst + r * ss + col, ok ? src + r * rs + col : any,
+                    ok ? 16 : 0);
+  }
+}
+
+// Row stride (elements) of a warp's staging rows: the state's 16 rows
+// of one m-tile, hi then lo, on their way to 16-byte stores.
+constexpr int kSS = kTV + 8;
+
+template <int DKP>
+constexpr size_t states_smem() {
+  return sizeof(bf16) * (kStages * kC * ((DKP + 8) + (kTV + 8)) +
+                         kWarps * 2 * 16 * kSS) +
+         sizeof(float) * (kStages * kC + kWarps * kC);
+}
+
+// Pass 1. Blocks [0, DVP / kTV) walk the chunks forward from h0, storing
+// H at each chunk's start, H' = exp(total) H + k^T (w o v); the other
+// half walk them backward from dh_final, storing dH at each chunk's end,
+// dH = exp(total) dH' + q^T (e o dy), e_i = exp(cum_i). One block per
+// (kTV columns of the state, head, batch row); warp w keeps rows 16 w +
+// 64 m of the state tile in registers (C fragments) and stores them
+// through its own staging rows in shared memory, 16 bytes a lane (4-byte
+// stores straight from the fragments took half the pass's time).
+template <int DKP, int DVP>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_states_kernel(const Args g) {
+  constexpr int XS = DKP + 8, ZS = kTV + 8, NT = kTV / 8, MT = DKP / 64;
+  constexpr int kTiles = DVP / kTV;
+  extern __shared__ float4 smem4[];
+  bf16* xs = reinterpret_cast<bf16*>(smem4);            // [kStages][64][XS]
+  bf16* zs = xs + kStages * kC * XS;                    // [kStages][64][ZS]
+  bf16* stage = zs + kStages * kC * ZS;                 // [kWarps][2][16][kSS]
+  float* as = reinterpret_cast<float*>(stage + kWarps * 2 * 16 * kSS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, t = lane & 3;
+  float* cum = as + kStages * kC + warp * kC;
+  bf16* ws = stage + warp * 2 * 16 * kSS;
+  const bool fwd = static_cast<int>(blockIdx.x) < kTiles;
+  const int tile = fwd ? blockIdx.x : blockIdx.x - kTiles;
+  const int c0 = tile * kTV, head = blockIdx.y;
+  const long long bi = blockIdx.z, bh = bi * g.nh + head;
+  const long long dkv = static_cast<long long>(g.dk) * g.dv;
+  const bf16* x = fwd ? g.k + bi * g.sk[0] + head * g.sk[1]
+                      : g.q + bi * g.sq[0] + head * g.sq[1];
+  const long long xt = fwd ? g.sk[2] : g.sq[2];
+  const bf16* z = fwd ? g.v + bi * g.sv[0] + head * g.sv[1] + c0
+                      : (g.dy ? g.dy + bi * g.sy[0] + head * g.sy[1] + c0
+                              : nullptr);
+  const long long zt = fwd ? g.sv[2] : g.sy[2];
+  const float* a = g.a + bi * g.sa[0] + head * g.sa[1];
+  const float* init = fwd ? g.h0 + bh * dkv : (g.dh ? g.dh + bh * dkv
+                                                    : nullptr);
+  bf16* out = (fwd ? g.hs : g.dhs) + bh * g.nc * 2 * DKP * DVP;
+
+  float st[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 64 * m + 16 * warp + gr + 8 * (e >> 1);
+        const int col = c0 + nt * 8 + 2 * t + (e & 1);
+        st[m][nt][e] = init != nullptr && d < g.dk && col < g.dv
+                           ? init[static_cast<long long>(d) * g.dv + col]
+                           : 0.f;
+      }
+
+  auto issue = [&](int n) {                     // chunk n of the walk
+    if (n < g.nc) {
+      const int c = fwd ? n : g.nc - 1 - n;
+      const int t0 = c * kC, len = min(kC, g.s - t0), slot = n % kStages;
+      copy_tile<DKP>(xs + slot * kC * XS, XS, x + t0 * xt, xt, len, g.dk,
+                     g.q, tid);
+      copy_tile<kTV>(zs + slot * kC * ZS, ZS, z ? z + t0 * zt : nullptr, zt,
+                     len, g.dv - c0, g.q, tid);
+      if (tid < kC) {
+        const bool ok = tid < len;
+        hop::cp_async4(as + slot * kC + tid, ok ? a + (t0 + tid) * g.sa[2] : a,
+                       ok ? 4 : 0);
+      }
+    }
+    hop::cp_async_commit();
+  };
+
+  for (int n = 0; n < kStages - 1; ++n) issue(n);
+  for (int n = 0; n < g.nc; ++n) {
+    const int c = fwd ? n : g.nc - 1 - n;
+    hop::cp_async_wait<kStages - 2>();          // chunk n has landed
+    __syncthreads();                            // and chunk n - 1 is read
+    issue(n + kStages - 1);
+    const int slot = n % kStages;
+    const bf16* xsl = xs + slot * kC * XS;
+    const bf16* zsl = zs + slot * kC * ZS;
+
+    // the state before this chunk's update, as bf16 hi and lo: this
+    // warp's rows into its staging rows, then out 16 bytes a lane
+    bf16* o = out + static_cast<long long>(c) * 2 * DKP * DVP;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          uint32_t hi, lo;
+          split2(st[m][nt][2 * r], st[m][nt][2 * r + 1], hi, lo);
+          const int off = (gr + 8 * r) * kSS + nt * 8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(ws + off) = hi;
+          *reinterpret_cast<uint32_t*>(ws + 16 * kSS + off) = lo;
+        }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 2 * 16 * (kTV / 8) / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const int row = idx / (kTV / 8), piece = idx % (kTV / 8);
+        const int half = row >> 4, d = 64 * m + 16 * warp + (row & 15);
+        *reinterpret_cast<uint4*>(o + (half * DKP + d) * DVP + c0 +
+                                  piece * 8) =
+            *reinterpret_cast<const uint4*>(ws + row * kSS + piece * 8);
+      }
+      __syncwarp();
+    }
+
+    if (fwd && n + 1 == g.nc) break;            // h_final is not needed
+    const float total = chunk_scan(as + slot * kC, cum, lane);
+    const float decay = ex2(total);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[m][nt][e] *= decay;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // B = u o z, u = w (forward) or e (backward), in hi and lo; rows j
+      // = 16 kk + 2t (+1) in b0, + 8 (+9) in b1
+      const int j = kk * 16 + 2 * t;
+      float u[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float cj = cum[j + (e & 1) + 8 * (e >> 1)];
+        u[e] = fwd ? ex2(total - cj) : ex2(cj);
+      }
+      uint32_t bhi[NT][2], blo[NT][2];
+#pragma unroll
+      for (int nq = 0; nq < NT / 2; ++nq) {
+        uint32_t b[4];
+        hop::ldsm_x4_t(b, zsl + (kk * 16 + (lane & 15)) * ZS + nq * 16 +
+                              ((lane >> 4) << 3));
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float2 f = unpack_bf16x2(b[h]);
+          const int hf = h & 1;                 // b0 or b1 of its n-tile
+          split2(f.x * u[2 * hf], f.y * u[2 * hf + 1],
+                 bhi[2 * nq + (h >> 1)][hf], blo[2 * nq + (h >> 1)][hf]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        uint32_t ax[4];                         // x^T: rows d, columns j
+        hop::ldsm_x4_t(ax, xsl + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                     XS +
+                               64 * m + warp * 16 +
+                               (((lane >> 3) & 1) << 3));
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          hop::mma_bf16(st[m][nt], ax, bhi[nt][0], bhi[nt][1]);
+          hop::mma_bf16(st[m][nt], ax, blo[nt][0], blo[nt][1]);
+        }
+      }
+    }
+  }
+  hop::cp_async_wait<0>();
+
+  if (!fwd && g.gh0 != nullptr) {               // dh0 = dH at the start
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 64 * m + 16 * warp + gr + 8 * (e >> 1);
+          const int col = c0 + nt * 8 + 2 * t + (e & 1);
+          if (d < g.dk && col < g.dv)
+            g.gh0[bh * dkv + static_cast<long long>(d) * g.dv + col] =
+                st[m][nt][e];
+        }
+  }
+}
+
+template <int DKP, int DVP>
+constexpr size_t chunk_smem() {
+  return sizeof(bf16) * (2 * kC * (DKP + 8) + 2 * kC * (DVP + 8) +
+                         4 * DKP * (DVP + 8)) +
+         sizeof(float) * (kC + kWarps * kC + 2 * kC + kWarps);
+}
+
+// C fragments [16 x 64] (8 n-tiles) rounded to bf16 hi and lo A
+// fragments of the next product, k-steps of 16 columns.
+__device__ __forceinline__ void to_a_hilo(const float (&c)[8][4],
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    split2(c[2 * kk][0], c[2 * kk][1], hi[kk][0], lo[kk][0]);
+    split2(c[2 * kk][2], c[2 * kk][3], hi[kk][1], lo[kk][1]);
+    split2(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[kk][2], lo[kk][2]);
+    split2(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// acc[16 x 64] += rows `a` ([16 x 16 NKK], row stride sa) times the
+// rows of `b` ([64 x 16 NKK], row stride sb) transposed, a b^T; with
+// HILO, + a b2^T as well (b and b2 an f32 operand's hi and lo).
+template <int NKK, bool HILO = false>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* a,
+                                        int sa, const bf16* b, int sb,
+                                        int lane, const bf16* b2 = nullptr) {
+#pragma unroll
+  for (int kk = 0; kk < NKK; ++kk) {
+    uint32_t fa[4];
+    hop::ldsm_x4(fa, a + (lane & 15) * sa + kk * 16 + ((lane >> 4) << 3));
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * sb +
+                      kk * 16 + (((lane >> 3) & 1) << 3);
+      uint32_t fb[4];
+      hop::ldsm_x4(fb, b + off);
+      hop::mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
+      hop::mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
+      if (HILO) {
+        hop::ldsm_x4(fb, b2 + off);
+        hop::mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
+        hop::mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
+}
+
+// acc[16 x 64] += A (4 k-steps of A fragments, hi and lo) times `b`
+// ([64 x 64] row-major, row stride bs): the k index is b's row.
+__device__ __forceinline__ void mma_frag_b(float (&acc)[8][4],
+                                           const uint32_t (&hi)[4][4],
+                                           const uint32_t (&lo)[4][4],
+                                           const bf16* b, int bs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int nq = 0; nq < 4; ++nq) {
+      uint32_t fb[4];
+      hop::ldsm_x4_t(fb, b + (kk * 16 + (lane & 15)) * bs + nq * 16 +
+                             ((lane >> 4) << 3));
+      hop::mma_bf16(acc[2 * nq], hi[kk], fb[0], fb[1]);
+      hop::mma_bf16(acc[2 * nq + 1], hi[kk], fb[2], fb[3]);
+      hop::mma_bf16(acc[2 * nq], lo[kk], fb[0], fb[1]);
+      hop::mma_bf16(acc[2 * nq + 1], lo[kk], fb[2], fb[3]);
+    }
+  }
+}
+
+// acc[16 x 64] += rows `a` ([16 x 16 NKK]) times the state tile columns
+// [64 x 64] of `bh` + `bl` (hi and lo, [16 NKK x 64] row-major): the k
+// index is the state's row.
+template <int NKK>
+__device__ __forceinline__ void mma_a_state(float (&acc)[8][4],
+                                            const bf16* a, int sa,
+                                            const bf16* bh, const bf16* bl,
+                                            int bs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NKK; ++kk) {
+    uint32_t fa[4];
+    hop::ldsm_x4(fa, a + (lane & 15) * sa + kk * 16 + ((lane >> 4) << 3));
+#pragma unroll
+    for (int nq = 0; nq < 4; ++nq) {
+      uint32_t fh[4], fl[4];
+      const int off = (kk * 16 + (lane & 15)) * bs + nq * 16 +
+                      ((lane >> 4) << 3);
+      hop::ldsm_x4_t(fh, bh + off);
+      hop::ldsm_x4_t(fl, bl + off);
+      hop::mma_bf16(acc[2 * nq], fa, fh[0], fh[1]);
+      hop::mma_bf16(acc[2 * nq + 1], fa, fh[2], fh[3]);
+      hop::mma_bf16(acc[2 * nq], fa, fl[0], fl[1]);
+      hop::mma_bf16(acc[2 * nq + 1], fa, fl[2], fl[3]);
+    }
+  }
+}
+
+// acc's two rows of this thread's C fragments scaled by s0 and s1.
+__device__ __forceinline__ void scale_rows(float (&acc)[8][4], float s0,
+                                           float s1) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    acc[nt][0] *= s0;
+    acc[nt][1] *= s0;
+    acc[nt][2] *= s1;
+    acc[nt][3] *= s1;
+  }
+}
+
+// dot[r] += acc's row r . the matching row of `x` (the [16 x 64] tile of
+// acc's rows and columns, row stride xs), this thread's share.
+__device__ __forceinline__ void row_dot(const float (&acc)[8][4],
+                                        const bf16* x, int xs, int lane,
+                                        float (&dot)[2]) {
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 x0 = unpack_bf16x2(
+        *reinterpret_cast<const uint32_t*>(x + gr * xs + nt * 8 + 2 * t));
+    const float2 x1 = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(
+        x + (gr + 8) * xs + nt * 8 + 2 * t));
+    dot[0] += acc[nt][0] * x0.x + acc[nt][1] * x0.y;
+    dot[1] += acc[nt][2] * x1.x + acc[nt][3] * x1.y;
+  }
+}
+
+// Rows i0, i0 + 8 of acc (columns c0 + ...) into out ([len x n], row
+// stride n) in bf16, where they lie inside.
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[8][4],
+                                           int i0, int len, int c0, int n,
+                                           int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    if (i >= len) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = c0 + nt * 8 + 2 * t;
+      if (col < n)
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(i) * n +
+                                     col) =
+            hop::pack_bf16x2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    }
+  }
+}
+
+// Pass 2. One block per (chunk, head, batch row); warp w owns the
+// chunk's rows 16 w .. 16 w + 15, as query steps i (dq) and then as key
+// steps j (dk, dv). With S = q k^T, dP = dy v^T, gate_ij = exp(cum_i -
+// cum_j) for j <= i (0 above), H the chunk's starting state, dH its end
+// cotangent, e_i = exp(cum_i), w_j = exp(total - cum_j):
+//   dq = (dP o gate) k + e o (dy H^T)
+//   dk = (dP o gate)^T q + w o (v dH^T)
+//   dv = (S o gate)^T dy + w o (k dH)
+// and dlog_a, from this chunk alone (its a_l reach the rest of the
+// sequence only through H' = exp(total) H + ..., so exp(total) <H, dH>
+// carries all of it):
+//   dlog_a_l = sum_{i >= l > j} M_ij + sum_{i >= l} e_i (q_i H) . dy_i
+//              + sum_{j < l} w_j (k_j dH) . v_j + exp(total) <H, dH>
+// with M = S o gate o dP. The first sum is the suffix sum over i >= l of
+// M's row sums less its column sums, both without the diagonal; so no
+// term enters twice with opposite signs by two routes, as the sum of
+// q . dq - k . dk over the whole sequence would (the i = j products and
+// the w terms, large where the decay is fast and dlog_a near 0). Every
+// product on the tensor cores: the bf16 inputs as they are; the f32
+// operands (dP o gate, S o gate, H and dH) as bf16 hi + lo.
+template <int DKP, int DVP>
+__global__ void __launch_bounds__(kThreads, DKP + DVP <= 128 ? 2 : 1)
+ssd_bwd_chunk_kernel(const Args g) {
+  constexpr int QS = DKP + 8, VS = DVP + 8, NK = DKP / 16, NV = DVP / 16;
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);            // [64][QS]
+  bf16* ks = qs + kC * QS;                              // [64][QS]
+  bf16* vs = ks + kC * QS;                              // [64][VS]
+  bf16* ys = vs + kC * VS;                              // [64][VS]
+  bf16* hh = ys + kC * VS;                              // [DKP][VS]: H hi,
+  bf16* hl = hh + DKP * VS;                             //   H lo,
+  bf16* dhh = hl + DKP * VS;                            //   dH hi,
+  bf16* dhl = dhh + DKP * VS;                           //   dH lo
+  float* as = reinterpret_cast<float*>(dhl + DKP * VS);  // [64] log_a
+  float* rows = as + kC + kWarps * kC;          // [64] i-side, [64] w terms
+  float* red = rows + 2 * kC;                   // [kWarps]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, t = lane & 3;
+  float* cum = as + kC + warp * kC;
+  const int c = blockIdx.x, head = blockIdx.y;
+  const long long bi = blockIdx.z, bh = bi * g.nh + head;
+  const int t0 = c * kC, len = min(kC, g.s - t0);
+
+  copy_tile<DKP>(qs, QS, g.q + bi * g.sq[0] + head * g.sq[1] + t0 * g.sq[2],
+                 g.sq[2], len, g.dk, g.q, tid);
+  copy_tile<DKP>(ks, QS, g.k + bi * g.sk[0] + head * g.sk[1] + t0 * g.sk[2],
+                 g.sk[2], len, g.dk, g.q, tid);
+  copy_tile<DVP>(vs, VS, g.v + bi * g.sv[0] + head * g.sv[1] + t0 * g.sv[2],
+                 g.sv[2], len, g.dv, g.q, tid);
+  copy_tile<DVP>(ys, VS,
+                 g.dy ? g.dy + bi * g.sy[0] + head * g.sy[1] + t0 * g.sy[2]
+                      : nullptr,
+                 g.sy[2], len, g.dv, g.q, tid);
+  if (tid < kC) {
+    const float* a = g.a + bi * g.sa[0] + head * g.sa[1];
+    const bool ok = tid < len;
+    hop::cp_async4(as + tid, ok ? a + (t0 + tid) * g.sa[2] : a, ok ? 4 : 0);
+  }
+  hop::cp_async_commit();
+  {                                             // H and dH: [2][DKP][DVP]
+    const long long off = (bh * g.nc + c) * 2 * DKP * DVP;
+    constexpr int kSeg = DVP / 8;
+#pragma unroll
+    for (int i = 0; i < 2 * DKP * kSeg / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / kSeg, col = (idx % kSeg) * 8;
+      hop::cp_async16(hh + r * VS + col, g.hs + off + r * DVP + col, 16);
+      hop::cp_async16(dhh + r * VS + col, g.dhs + off + r * DVP + col, 16);
+    }
+  }
+  hop::cp_async_commit();
+  hop::cp_async_wait<1>();                      // q, k, v, dy, log_a
+  __syncthreads();
+
+  const float total = chunk_scan(as, cum, lane);
+  const int i0 = warp * 16 + gr;                // this thread's two rows
+  const float c_0 = cum[i0], c_1 = cum[i0 + 8];
+  uint32_t hi[4][4], lo[4][4];
+  // M's row sums less its column sums (diagonal left out), then the
+  // i-side and w terms of dlog_a, for this thread's two rows
+  float msum[2] = {0.f, 0.f}, side[2] = {0.f, 0.f}, wside[2] = {0.f, 0.f};
+
+  // --- rows as queries i: dq ---
+  {
+    float sc[8][4] = {}, dp[8][4] = {};
+    mma_abt<NK>(sc, qs + warp * 16 * QS, QS, ks, QS, lane);   // q k^T
+    mma_abt<NV>(dp, ys + warp * 16 * VS, VS, vs, VS, lane);   // dy v^T
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = nb * 8 + 2 * t + (e & 1), i = i0 + 8 * (e >> 1);
+        const float gate =
+            j <= i ? ex2(fminf((e >> 1 ? c_1 : c_0) - cum[j], 0.f)) : 0.f;
+        if (j < i) msum[e >> 1] += sc[nb][e] * gate * dp[nb][e];
+        dp[nb][e] *= gate;
+      }
+    to_a_hilo(dp, hi, lo);
+  }
+  hop::cp_async_wait<0>();                      // H and dH
+  __syncthreads();
+  const float e_0 = ex2(c_0), e_1 = ex2(c_1);
+  for (int ot = 0; ot < DKP / 64; ++ot) {
+    float acc[8][4] = {};
+    mma_abt<NV, true>(acc, ys + warp * 16 * VS, VS, hh + ot * 64 * VS, VS,
+                      lane, hl + ot * 64 * VS);                 // dy H^T
+    scale_rows(acc, e_0, e_1);
+    row_dot(acc, qs + warp * 16 * QS + ot * 64, QS, lane, side);
+    mma_frag_b(acc, hi, lo, ks + ot * 64, QS, lane);           // += dP' k
+    store_rows(g.gq + (bh * g.s + t0) * g.dk, acc, i0, len, ot * 64, g.dk,
+               lane);
+  }
+
+  // --- rows as keys j: dk, then dv ---
+  {
+    float st[8][4] = {}, dpt[8][4] = {};
+    mma_abt<NK>(st, ks + warp * 16 * QS, QS, qs, QS, lane);    // k q^T
+    mma_abt<NV>(dpt, vs + warp * 16 * VS, VS, ys, VS, lane);   // v dy^T
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = nb * 8 + 2 * t + (e & 1), j = i0 + 8 * (e >> 1);
+        const float gate =
+            i >= j ? ex2(fminf(cum[i] - (e >> 1 ? c_1 : c_0), 0.f)) : 0.f;
+        if (i > j) msum[e >> 1] -= st[nb][e] * gate * dpt[nb][e];
+        dpt[nb][e] *= gate;
+      }
+    to_a_hilo(dpt, hi, lo);
+  }
+  const float w_0 = ex2(total - c_0), w_1 = ex2(total - c_1);
+  for (int ot = 0; ot < DKP / 64; ++ot) {
+    float acc[8][4] = {};
+    mma_abt<NV, true>(acc, vs + warp * 16 * VS, VS, dhh + ot * 64 * VS, VS,
+                      lane, dhl + ot * 64 * VS);                // v dH^T
+    scale_rows(acc, w_0, w_1);
+    row_dot(acc, ks + warp * 16 * QS + ot * 64, QS, lane, wside);
+    mma_frag_b(acc, hi, lo, qs + ot * 64, QS, lane);           // += dP'^T q
+    store_rows(g.gk + (bh * g.s + t0) * g.dk, acc, i0, len, ot * 64, g.dk,
+               lane);
+  }
+  {                                             // k q^T again, gated
+    float st[8][4] = {};
+    mma_abt<NK>(st, ks + warp * 16 * QS, QS, qs, QS, lane);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = nb * 8 + 2 * t + (e & 1), j = i0 + 8 * (e >> 1);
+        st[nb][e] *= i >= j ? ex2(fminf(cum[i] - (e >> 1 ? c_1 : c_0), 0.f))
+                            : 0.f;
+      }
+    to_a_hilo(st, hi, lo);
+  }
+  for (int ot = 0; ot < DVP / 64; ++ot) {
+    float acc[8][4] = {};
+    mma_a_state<NK>(acc, ks + warp * 16 * QS, QS, dhh + ot * 64, dhl + ot * 64,
+                    VS, lane);                                 // k dH
+    scale_rows(acc, w_0, w_1);
+    mma_frag_b(acc, hi, lo, ys + ot * 64, VS, lane);           // += G^T dy
+    store_rows(g.gv + (bh * g.s + t0) * g.dv, acc, i0, len, ot * 64, g.dv,
+               lane);
+  }
+
+  // --- dlog_a ---
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float x = hop::quad_sum(msum[r] + side[r]);
+    const float y = hop::quad_sum(wside[r]);
+    if (t == 0) {
+      rows[i0 + 8 * r] = x;
+      rows[kC + i0 + 8 * r] = y;
+    }
+  }
+  float p = 0.f;                                // <H, dH>, this thread's
+  for (int idx = tid; idx < DKP * DVP / 2; idx += kThreads) {
+    const int d = idx / (DVP / 2), col = 2 * (idx % (DVP / 2));
+    const int o = d * VS + col;
+    auto at = [o](const bf16* x) {
+      return unpack_bf16x2(*reinterpret_cast<const uint32_t*>(x + o));
+    };
+    const float2 h0 = at(hh), h1 = at(hl), d0 = at(dhh), d1 = at(dhl);
+    p += (h0.x + h1.x) * (d0.x + d1.x) + (h0.y + h1.y) * (d0.y + d1.y);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    p += __shfl_xor_sync(hop::kFull, p, off);
+  if (lane == 0) red[warp] = p;
+  __syncthreads();
+  if (warp == 0) {
+    const float carry = ex2(total) * (red[0] + red[1] + red[2] + red[3]);
+    // suffix sums of the i-side over l = lane, 32 + lane; exclusive
+    // prefix sums of the w terms
+    float x0 = rows[lane], x1 = rows[32 + lane];
+    float y0 = rows[kC + lane], y1 = rows[kC + 32 + lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_down_sync(hop::kFull, x0, off);
+      const float u1 = __shfl_down_sync(hop::kFull, x1, off);
+      const float v0 = __shfl_up_sync(hop::kFull, y0, off);
+      const float v1 = __shfl_up_sync(hop::kFull, y1, off);
+      if (lane + off < 32) {
+        x0 += u0;
+        x1 += u1;
+      }
+      if (lane >= off) {
+        y0 += v0;
+        y1 += v1;
+      }
+    }
+    x0 += __shfl_sync(hop::kFull, x1, 0);
+    y1 += __shfl_sync(hop::kFull, y0, 31);
+    y0 -= rows[kC + lane];                      // exclusive
+    y1 -= rows[kC + 32 + lane];
+    float* out = g.gla + bh * g.s + t0;
+    if (lane < len) out[lane] = x0 + y0 + carry;
+    if (32 + lane < len) out[32 + lane] = x1 + y1 + carry;
+  }
+}
+
+template <int DKP, int DVP>
+int launch(const Args& g, int b, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      hop::allow_smem<ssd_bwd_states_kernel<DKP, DVP>>(states_smem<DKP>());
+  if (err == cudaSuccess)
+    err = hop::allow_smem<ssd_bwd_chunk_kernel<DKP, DVP>>(
+        chunk_smem<DKP, DVP>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_states_kernel<DKP, DVP>
+      <<<dim3(2 * (DVP / kTV), g.nh, b), kThreads, states_smem<DKP>(), st>>>(
+          g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || g.nc == 0) return static_cast<int>(err);
+  ssd_bwd_chunk_kernel<DKP, DVP>
+      <<<dim3(g.nc, g.nh, b), kThreads, chunk_smem<DKP, DVP>(), st>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
+
 // 0 when the call has something to do and its shape is one the entries
 // take (-1: nothing to do), else an error code.
 int prepare(const long long* strides, int b, int nh, int s, int dk, int dv,
@@ -948,6 +1665,62 @@ int ssd_scan_bf16(const void* q, const void* k, const void* v,
   auto run = wide ? (pairs ? bf::launch<32, true> : bf::launch<32, false>)
                   : (pairs ? bf::launch<16, true> : bf::launch<16, false>);
   return run(q, k, v, log_a, h0, y, h_out, st, b, nh, s, dk, dv, stream);
+}
+
+// The bf16 scan's backward: (q, k, v, log_a, h0) as ssd_scan_bf16 takes
+// them, dy [b, nh, S, dv] bf16 with its own batch, head and time strides
+// (strides: q, k, v, dy, log_a, each as batch, head, time; 15 in all),
+// dh_final [b, nh, dk, dv] f32 contiguous; dy or dh may be null (a zero
+// cotangent). Writes dq, dk [b, nh, S, dk] and dv [b, nh, S, dv] in bf16,
+// dlog_a [b, nh, S] and, unless gh0 is null, dh0 [b, nh, dk, dv] in f32,
+// all contiguous. `states` holds 2 b nh ceil(S / 64) 2 64 64 bf16 (dk
+// and dv padded to 64). dk, dv multiples of 8 up to 64 (the Mamba2
+// scans'; the kernel is built for that one tiling, <64, 64>); q, k, v
+// and dy 16-byte aligned, their batch, head and time
+// strides multiples of 8. Two launches (one when S = 0); returns
+// cudaGetLastError() after the last (0 on success).
+int ssd_bwd_bf16(const void* q, const void* k, const void* v, const void* dy,
+                 const void* log_a, const void* h0, const void* dh, void* gq,
+                 void* gk, void* gv, void* gla, void* gh0, void* states,
+                 const long long* strides, int b, int nh, int s, int dk,
+                 int dv, void* stream) {
+  using bwd::bf16;
+  if (b <= 0 || nh <= 0) return 0;
+  bool ok = s >= 0 && nh <= 65535 && b <= 65535 && dk > 0 && dv > 0 &&
+            dk % 8 == 0 && dv % 8 == 0 && dk <= bwd::kMaxD &&
+            dv <= bwd::kMaxD && aligned(q, 16) && aligned(k, 16) &&
+            aligned(v, 16) && aligned(dy, 16);
+  for (int i = 0; i < 12; ++i) ok = ok && strides[i] % 8 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  bwd::Args g;
+  g.q = static_cast<const bf16*>(q);
+  g.k = static_cast<const bf16*>(k);
+  g.v = static_cast<const bf16*>(v);
+  g.dy = static_cast<const bf16*>(dy);
+  g.a = static_cast<const float*>(log_a);
+  g.h0 = static_cast<const float*>(h0);
+  g.dh = static_cast<const float*>(dh);
+  g.gq = static_cast<bf16*>(gq);
+  g.gk = static_cast<bf16*>(gk);
+  g.gv = static_cast<bf16*>(gv);
+  g.gla = static_cast<float*>(gla);
+  g.gh0 = static_cast<float*>(gh0);
+  g.nc = (s + bwd::kC - 1) / bwd::kC;
+  for (int i = 0; i < 3; ++i) {
+    g.sq[i] = strides[i];
+    g.sk[i] = strides[3 + i];
+    g.sv[i] = strides[6 + i];
+    g.sy[i] = strides[9 + i];
+    g.sa[i] = strides[12 + i];
+  }
+  g.nh = nh;
+  g.s = s;
+  g.dk = dk;
+  g.dv = dv;
+  g.hs = static_cast<bf16*>(states);
+  g.dhs = g.hs + static_cast<long long>(b) * nh * g.nc * 2 * bwd::kMaxD *
+                     bwd::kMaxD;
+  return bwd::launch<bwd::kMaxD, bwd::kMaxD>(g, b, stream);
 }
 
 }  // extern "C"

@@ -38,17 +38,34 @@ the plain chunked form :func:`~repro_torch.kernels.ref.
 chunked_linear_scan`, which computes the same function in S/256 steps
 where the sequential scan takes S; CUDA tensors go through
 :class:`_SsdScanFn`,
-whose forward launches the kernel or raises — there is no fallback —
-and whose backward is the plain
-:func:`~repro_torch.kernels.ref.ssd_scan_bwd`: the Pallas kernel has no
-backward either, and the reference trains through the VJP of its jnp
-``chunked_linear_scan``, which that function is. ``launches`` counts the
-kernel launches (a remat recompute launches the forward again).
+whose forward launches the kernel or raises — there is no fallback.
+
+The backward: the Pallas kernel has none, and the reference trains
+through the VJP of its jnp ``chunked_linear_scan``, which the plain
+:func:`~repro_torch.kernels.ref.ssd_scan_bwd` is. On the card the
+backward is a kernel of its own (``csrc/ssd_scan.cu``, kernels named
+``ssd_bwd_*``) where :func:`_bwd_takes_kernel` says so: q, k and v in
+bf16, log_a and h0 in f32, dk and dv multiples of 8 up to 64 (the
+Mamba2 scans: zamba2's dk = dv = 64; the kernel is built for that one
+tiling). Everything else — f32 calls and
+xlstm's mLSTM (dk 512, dv 513) — takes ``ssd_scan_bwd``; the predicate
+decides by dtype and shape alone, never on an error. The kernel is two
+launches a call: the states (H at every 64-step chunk's start, walked
+forward from h0, and dH at its end, walked back from dh_final, both
+kept as bf16 hi + lo), then one block per chunk for its dq, dk, dv and
+dlog_a on the tensor cores (dlog_a from the chunk alone: exp(total) <H,
+dH> carries the rest of the sequence). dq and dk are each head's own,
+as q and k were broadcast to the heads: the broadcast's own backward
+sums them. dy and v go in with their strides where 16-byte copies can
+read them, else as a copy; no dh0 is written where h0 takes no
+gradient. ``launches`` counts the forward's launches (a remat recompute
+launches it again), ``backward_launches`` the backward kernel's
+launches (two a call).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -59,8 +76,17 @@ from repro_torch.kernels.ref import (chunked_linear_scan, ssd_scan_bwd,
 
 #: kernel launches since the count was last set to 0
 launches = 0
-#: ``torch.profiler`` label of the plain backward; only a profiler reads it
+#: backward kernel launches since the count was last set to 0 (two a
+#: call: the states, then the chunks; one where S is 0)
+backward_launches = 0
+#: ``torch.profiler`` label of the backward, kernel or plain; only a
+#: profiler reads it
 SPAN_BACKWARD = "ssd_scan.backward"
+#: largest dk and dv the backward kernel takes (each a multiple of 8,
+#: padded to this one tiling)
+BWD_MAX_D = 64
+#: the backward kernel's chunk (time steps)
+BWD_CHUNK = 64
 
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 #: largest dk each entry takes
@@ -73,6 +99,15 @@ def _fn(dtype: torch.dtype):
     fn = getattr(_build.load("ssd_scan"), _ENTRY[dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = _build.load("ssd_scan").ssd_bwd_bf16
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -170,10 +205,85 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, h_out
 
 
+def _bwd_takes_kernel(q: torch.Tensor, v: torch.Tensor,
+                      log_a: torch.Tensor, h0: torch.Tensor) -> bool:
+    """Whether the backward of a call on these inputs runs as the kernel:
+    on a CUDA device, q (and k, of q's dtype) and v in bf16, log_a and h0
+    in f32, dk and dv multiples of 8 up to :data:`BWD_MAX_D`. Anything
+    else takes the plain ``ssd_scan_bwd``."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and v.dtype == torch.bfloat16 and log_a.dtype == torch.float32
+            and h0.dtype == torch.float32
+            and 0 < dk <= BWD_MAX_D and dk % 8 == 0
+            and 0 < dv <= BWD_MAX_D and dv % 8 == 0)
+
+
+def _strides16(x: torch.Tensor) -> Tuple[int, int, int]:
+    """x's batch, head and time strides, 0 along an axis of size 1."""
+    return tuple(0 if n == 1 else st
+                 for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def _copyable16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where 16-byte copies read it (last axis contiguous,
+    base 16-byte aligned, batch, head and time strides multiples of 8
+    elements), else a contiguous copy."""
+    ok = ((x.shape[-1] <= 1 or x.stride(-1) == 1)
+          and x.data_ptr() % 16 == 0
+          and all(st % 8 == 0 for st in _strides16(x)))
+    return x if ok else x.contiguous()
+
+
+def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_a: torch.Tensor, h0: torch.Tensor,
+                dy: Optional[torch.Tensor], dh_final: Optional[torch.Tensor],
+                want_dh0: bool) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward kernel on one call's saved inputs and cotangents:
+    (dq, dk, dv, dlog_a, dh0), dh0 None unless ``want_dh0``."""
+    global backward_launches
+    q, k, v = (_copyable16(x) for x in (q, k, v))
+    dy = None if dy is None else _copyable16(dy)
+    dh = None if dh_final is None else dh_final.float().contiguous()
+    h0 = h0.contiguous()
+    b, nh, s, dk = q.shape
+    dv = v.shape[3]
+    dev = q.device
+    dq = torch.empty((b, nh, s, dk), dtype=q.dtype, device=dev)
+    dkk = torch.empty((b, nh, s, dk), dtype=k.dtype, device=dev)
+    dvv = torch.empty((b, nh, s, dv), dtype=v.dtype, device=dev)
+    dla = torch.empty((b, nh, s), dtype=torch.float32, device=dev)
+    dh0 = torch.empty_like(h0) if want_dh0 else None
+    n_chunks = -(-s // BWD_CHUNK)
+    states = torch.empty(2 * b * nh * n_chunks * 2 * BWD_MAX_D * BWD_MAX_D,
+                         dtype=torch.bfloat16, device=dev)
+    strides = (ctypes.c_longlong * 15)(
+        *_strides16(q), *_strides16(k), *_strides16(v),
+        *(_strides16(dy) if dy is not None else (0, 0, 0)),
+        *log_a.stride())
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(dy),
+                        log_a.data_ptr(), h0.data_ptr(), ptr(dh),
+                        dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(),
+                        dla.data_ptr(), ptr(dh0), states.data_ptr(),
+                        ctypes.addressof(strides), b, nh, s, dk, dv, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
+                           f"error {err} at q {tuple(q.shape)} v "
+                           f"{tuple(v.shape)}")
+    if b and nh:
+        backward_launches += 2 if n_chunks else 1
+    return dq, dkk, dvv, dla, dh0
+
+
 class _SsdScanFn(torch.autograd.Function):
-    """The kernel's forward with the plain backward: the inputs are saved
-    as given (Mamba2's stride-0 B and C stay views) and the backward
-    recomputes the chunked scan in f32 and differentiates it."""
+    """The kernel's forward; the backward kernel where
+    :func:`_bwd_takes_kernel`, else the plain backward, which recomputes
+    the chunked scan in f32 and differentiates it. The inputs are saved
+    as given (Mamba2's stride-0 B and C stay views); an input that needs
+    no gradient gets None."""
 
     @staticmethod
     def forward(ctx, q, k, v, log_a, h0):
@@ -183,8 +293,15 @@ class _SsdScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh_final):
+        q, k, v, log_a, h0 = ctx.saved_tensors
         with record_function(SPAN_BACKWARD):
-            return ssd_scan_bwd(*ctx.saved_tensors, dy, dh_final)
+            if _bwd_takes_kernel(q, v, log_a, h0):
+                grads = _bwd_launch(q, k, v, log_a, h0, dy, dh_final,
+                                    ctx.needs_input_grad[4])
+            else:
+                grads = ssd_scan_bwd(q, k, v, log_a, h0, dy, dh_final)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def ssd_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
