@@ -6,10 +6,9 @@ group-mean kernel's plain version) must end with the reference's
 ``comm_bytes`` and ``sim_seconds`` exactly and its accuracy inside the
 band ``chip_smoke.py`` gates the card with: the reference's accuracy at
 iteration 20 over seeds 0-2 widened on each side by that spread plus
-0.05 (``chip_smoke.EXTENSION_REF``, from ``tools/reference_constants.py``;
-torch's draws run free of jax's).
+0.05 (``chipsmoke.refs.EXTENSION_REF``, from
+``tools/reference_constants.py``; torch's draws run free of jax's).
 """
-import sys
 from pathlib import Path
 
 import pytest
@@ -25,8 +24,8 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("name", sorted(EXTENSIONS))
 def test_quickstart_extension_matches_reference(name, monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
-    import chip_smoke
-    want_bytes, want_s, (lo, hi) = chip_smoke.EXTENSION_REF[name]
+    from chipsmoke.refs import EXTENSION_REF
+    want_bytes, want_s, (lo, hi) = EXTENSION_REF[name]
     fed = Federation(extension_config(name, kernel_group_mean=True),
                      device="cpu")
     state = fed.init_state()
@@ -40,4 +39,3 @@ def test_quickstart_extension_matches_reference(name, monkeypatch):
                for x in [state.params["fc1"]["w"], state.params["fc2"]["b"]])
     if name == "elastic":
         assert fed.cfg.n_peers == 26 and fed.plan.dims == (3, 3, 3)
-    sys.modules.pop("chip_smoke", None)

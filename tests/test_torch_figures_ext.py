@@ -25,10 +25,10 @@ def test_noniid_and_approximate_figure_rows_match_reference(monkeypatch):
     from repro.data.synthetic import classification_task
 
     monkeypatch.syspath_prepend(str(ROOT))
-    import chip_smoke
+    from chipsmoke.refs import figure_ext_mismatches
 
     rows = figures.run_figures(["8", "11"], SMOKE, 0, "cpu")
-    assert chip_smoke.figure_ext_mismatches(rows) == []
+    assert figure_ext_mismatches(rows) == []
     _, train, _ = classification_task("text", seed=0)
     parts = [r for r in rows if r["row"] == "fig8_partition"]
     for r, alpha in zip(parts, (0.1, 1.0, 100.0)):

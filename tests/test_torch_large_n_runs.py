@@ -1,23 +1,22 @@
 """The constants ``chip_smoke.py`` holds its large-N and recurrent
 training phases to, reached by the port on the CPU.
 
-* Each ``federation_large_n`` run (``chip_smoke.LARGE_N_RUNS``: the text
+* Each ``federation_large_n`` run (``chipsmoke.refs.LARGE_N_RUNS``: the text
   model at N = 125 under tail-aware adaptive group sizing on each
   transport, clustered placement at N = 64; 20 iterations, the
   group-mean kernel's route) ends with the reference's ledger by source
   and ``comm_bytes`` exactly, ``sim_seconds`` within 1e-9, the
   reference's ``regroup_log`` and ``placement_log``
-  (``chip_smoke.LARGE_N_REF``, from ``tools/reference_constants.py``),
+  (``chipsmoke.refs.LARGE_N_REF``, from ``tools/reference_constants.py``),
   one group-mean round a step per round of the grid in force, and its
   accuracy at 20 inside the reference's seed band (torch's draws run
   free of jax's).
 * The full-width zamba2-2.7b and xlstm-350m trainer runs
-  (``chip_smoke.TRAIN_RECURRENT``): the port's FL state on the meta
+  (``chipsmoke.refs.TRAIN_RECURRENT``): the port's FL state on the meta
   device has the stated parameters a peer, and its ledger after 6
   steps of 4 peers is the constant, which is the reference's from
   ``jax.eval_shape``.
 """
-import sys
 from pathlib import Path
 
 import pytest
@@ -40,21 +39,20 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
-def chip_smoke(monkeypatch):
+def refs(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
-    import chip_smoke
-    yield chip_smoke
-    sys.modules.pop("chip_smoke", None)
+    from chipsmoke import refs
+    return refs
 
 
 @pytest.mark.parametrize("run", ["adaptive_sim", "adaptive_vector_sim",
                                  "adaptive_super_sim",
                                  "placement_vector_sim"])
-def test_large_n_run_reaches_the_references_ledger(chip_smoke, monkeypatch,
+def test_large_n_run_reaches_the_references_ledger(refs, monkeypatch,
                                                    run):
-    ref = chip_smoke.LARGE_N_REF[run]
+    ref = refs.LARGE_N_REF[run]
     cfg = FederationConfig(kernel_group_mean=True,
-                           **chip_smoke.LARGE_N_RUNS[run])
+                           **refs.LARGE_N_RUNS[run])
     fed = Federation(cfg, device="cpu")
     rounds = []
     real = mar_allreduce._kernel_round
@@ -81,8 +79,8 @@ def test_large_n_run_reaches_the_references_ledger(chip_smoke, monkeypatch,
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-350m"])
-def test_recurrent_training_ledger_is_the_constant(chip_smoke, arch):
-    want = chip_smoke.TRAIN_RECURRENT[arch]
+def test_recurrent_training_ledger_is_the_constant(refs, arch):
+    want = refs.TRAIN_RECURRENT[arch]
     n, steps = 4, 6
     shape = fl_device.fl_state_shape(Model(get_config(arch)), n)
     assert sum(x[0].numel() for x in tree_leaves(shape["params"])) == \

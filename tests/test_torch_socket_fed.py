@@ -56,7 +56,7 @@ def _run(main, argv) -> str:
 
 def test_trainer_socket_line_is_the_references(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
-    import chip_smoke as cs
+    from chipsmoke import refs as cs
 
     argv = ["--arch", "starcoder2-3b", *cs.TRAIN_CLI_BASE,
             *cs.TRAIN_CLI_CASES["socket"]]

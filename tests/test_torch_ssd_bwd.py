@@ -460,16 +460,14 @@ def test_chip_smoke_counts_one_backward_a_layer_and_peer(monkeypatch):
     none; its profiles name the backward's kernels among the port's
     own."""
     import os
-    import sys
 
     from portbench import spec
 
     monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    import chip_smoke
-    z, port_kernels = chip_smoke.ZAMBA2_PUBLISHED, chip_smoke.PORT_KERNELS
-    recurrent = chip_smoke.TRAIN_RECURRENT
-    sys.modules.pop("chip_smoke", None)
+    from chipsmoke.refs import PORT_KERNELS as port_kernels
+    from chipsmoke.refs import TRAIN_RECURRENT as recurrent
+    from chipsmoke.refs import ZAMBA2_PUBLISHED as z
     bench = spec.Bench()
     cfg = bench.entry("fl_train_zamba2").port_config(
         bench.config(z["config"]))

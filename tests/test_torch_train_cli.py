@@ -2,7 +2,7 @@
 
 * The ``[train] comm total=...`` line, byte for byte, against the
   reference's for starcoder2-3b and musicgen-medium at their smoke
-  configs under each case of ``chip_smoke.TRAIN_CLI_CASES`` (the
+  configs under each case of ``chipsmoke.refs.TRAIN_CLI_CASES`` (the
   default, ``--churn sessions``, ``--link-profile wireless --link-loss
   0.1`` and ``--resize-at 2:2``): the constant ``chip_smoke.py`` holds
   (``tools/reference_constants.py``), and the reference's own CLI run
@@ -36,10 +36,10 @@ from test_torch_federation import one_torch_thread  # noqa: F401
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _chip_smoke(monkeypatch):
+def _refs(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
-    import chip_smoke
-    return chip_smoke
+    from chipsmoke import refs
+    return refs
 
 
 def _run(main, argv) -> str:
@@ -58,7 +58,7 @@ def _comm(out: str) -> str:
                                   "resize"])
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "musicgen-medium"])
 def test_comm_line_is_the_references(monkeypatch, arch, case):
-    cs = _chip_smoke(monkeypatch)
+    cs = _refs(monkeypatch)
     argv = ["--arch", arch, *cs.TRAIN_CLI_BASE, *cs.TRAIN_CLI_CASES[case]]
     out = _run(train.main, [*argv, "--device", "cpu"])
     want = cs.TRAIN_CLI_COMM[f"{arch} {case}"]
@@ -137,7 +137,7 @@ def test_unported_flags_name_their_item(monkeypatch, tmp_path, world_size):
     1 of a two-rank book beside rank 0 (``--rank``). Each rank's
     comm-total line is the reference's, wall-clock seconds masked: the
     whole ledger for one rank, the nodes' receptions for each of two."""
-    cs = _chip_smoke(monkeypatch)
+    cs = _refs(monkeypatch)
     argv = ["--arch", "starcoder2-3b", *cs.TRAIN_CLI_BASE, "--device",
             "cpu", "--transport", "socket"]
     if world_size == 0:
@@ -170,7 +170,7 @@ def test_large_n_flags_give_the_references_lines(monkeypatch, case):
     the new grid."""
     from repro.core import adaptive as ref_adaptive
 
-    cs = _chip_smoke(monkeypatch)
+    cs = _refs(monkeypatch)
     flags, want = cs.TRAIN_CLI_LARGE_N[case]
     if case == "schedule":
         for mod, attr in ((ref_adaptive, "build_controller"),

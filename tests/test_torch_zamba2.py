@@ -41,6 +41,7 @@ if _ROOT not in sys.path:
 from portbench import spec, weights  # noqa: E402
 from portbench.reference import zamba2 as ref  # noqa: E402
 from portbench.reference.precision import exact_float32  # noqa: E402
+from chipsmoke.refs import ZAMBA2_PUBLISHED  # noqa: E402
 
 LAYERS = ["mamba", "hybrid", "mamba", "hybrid", "mamba", "hybrid", "mamba"]
 TINY = {"hidden_size": 32, "num_hidden_layers": 7,
@@ -290,7 +291,7 @@ def test_d160_kernel_matches_the_plain_route(cuda, s):
 
 
 def test_chip_smoke_counts_are_the_models(monkeypatch):
-    """``chip_smoke.ZAMBA2_PUBLISHED``, the launch counts its
+    """``chipsmoke.refs.ZAMBA2_PUBLISHED``, the launch counts its
     ``train_zamba2`` phase holds the card to: the cell's peers and
     length, the published parameters, one mar_rounds launch a leaf of
     theta and of m, and a flash and an SSD-scan call in the forward and
@@ -300,10 +301,7 @@ def test_chip_smoke_counts_are_the_models(monkeypatch):
     from repro_torch.core.moshpit import plan_grid
     from repro_torch.models import ssm
 
-    monkeypatch.syspath_prepend(_ROOT)
-    import chip_smoke
-    z = chip_smoke.ZAMBA2_PUBLISHED
-    sys.modules.pop("chip_smoke", None)
+    z = ZAMBA2_PUBLISHED
     bench = spec.Bench()
     cfg = bench.config(z["config"])
     mix = bench.traffic(bench.cell("zamba2-2.7b.fl_train_4k")["traffic"])

@@ -7,7 +7,7 @@ Runs the quickstart config (27 peers, kernel on, 20 iterations) plain
 and under each of ``quickstart.EXTENSIONS`` in one process, ``R`` times
 over (default 5), each repetition in turns: forward in even ones,
 backward in odd ones, so a drift of the host's speed falls on every run
-alike. Each run is measured as ``chip_smoke.py`` measures it (ms per
+alike. Each run is measured as ``chipsmoke.federation`` measures it (ms per
 iteration: the median of iterations 2..20, the card synchronized after
 each step). Prints one JSON line per run, then one summary line: for
 each extension its ms per iteration in every repetition and its paired
@@ -36,21 +36,22 @@ def main() -> None:
         sys.exit("extension_timing: no CUDA device")
     sys.path.insert(0, str(HERE / "src"))
     sys.path.insert(1, str(HERE))
-    import chip_smoke
+    from chipsmoke.common import smi_line
+    from chipsmoke.federation import run_extension
     from repro_torch.kernels import ops
     from repro_torch.quickstart import (EXTENSIONS, extension_config,
                                         quickstart_config)
 
-    card = chip_smoke.smi_line()
+    card = smi_line()
     names = ["quickstart"] + list(EXTENSIONS)
     ms = {name: [] for name in names}
     kd_ms = {name: [] for name in names}
-    chip_smoke._run_extension(torch, quickstart_config(), ops)   # warm-up
+    run_extension(torch, quickstart_config(), ops)   # warm-up
     for rep in range(args.reps):
         for name in (names if rep % 2 == 0 else names[::-1]):
             cfg = (quickstart_config() if name == "quickstart"
                    else extension_config(name))
-            r = chip_smoke._run_extension(torch, cfg, ops)
+            r = run_extension(torch, cfg, ops)
             ms[name].append(statistics.median(r["step_s"][1:]) * 1e3)
             row = {"rep": rep, "run": name, "ms_per_iteration": ms[name][-1],
                    "first_step_ms": r["step_s"][0] * 1e3,

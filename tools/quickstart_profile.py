@@ -4,10 +4,10 @@
     python3 tools/quickstart_profile.py [--root DIR] [--label NAME]
 
 Runs the port found under ``DIR/src`` (default: this checkout), with the
-measuring code of this checkout's ``chip_smoke.py``: 20 kernel-on
+measuring code of this checkout's ``chipsmoke.federation``: 20 kernel-on
 quickstart iterations (ms per iteration, the median of iterations
-2..20, and group-mean launches per step), then ten steps under
-``torch.profiler`` (each layer's host and device ms, the aggregation's
+2..20, and group-mean launches per step), then ten steps traced by the
+benchmark's reader (each layer's host and device ms, the aggregation's
 kernel launches, the device's launches per step and busy share). Prints
 one JSON line with the card's nvidia-smi name and power limit.
 
@@ -39,16 +39,17 @@ def main() -> None:
         sys.exit("quickstart_profile: no CUDA device")
     sys.path.insert(0, str(args.root.resolve() / "src"))
     sys.path.insert(1, str(HERE))
-    import chip_smoke
+    from chipsmoke.common import smi_line
+    from chipsmoke.federation import profile_quickstart, run_quickstart
     from repro_torch.core.federation import Federation
     from repro_torch.kernels import ops
     from repro_torch.quickstart import quickstart_config
 
-    fed, _, accs, step_s, launches = chip_smoke.run_quickstart(
+    fed, _, accs, step_s, launches = run_quickstart(
         torch, Federation, quickstart_config(kernel_group_mean=True), ops)
-    prof = chip_smoke.profile_quickstart(torch)
+    prof = profile_quickstart(torch)
     print(json.dumps({
-        "label": args.label or str(args.root), "card": chip_smoke.smi_line(),
+        "label": args.label or str(args.root), "card": smi_line(),
         "ms_per_iteration": statistics.median(step_s[1:]) * 1e3,
         "step_ms": [t * 1e3 for t in step_s],
         "group_mean_launches_per_step": launches / len(step_s),

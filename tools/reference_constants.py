@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Compute, from the JAX reference on the CPU, the constants that
-``chip_smoke.py`` and the port's tests hold the port to.
+``chip_smoke.py`` and the port's tests hold the port to
+(``chipsmoke/refs.py``).
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python3 tools/reference_constants.py \
         [extensions] [figures] [train_cli] [train_chip] [large_n]
@@ -23,10 +24,10 @@ line of each CPU CLI case the port's tests run (``TRAIN_CLI_CASES``, at
 the smoke configs), and the ledger's total bytes of the chip's full-width
 musicgen-medium run (4 peers, 6 steps), computed from
 ``core/topology.py`` over ``jax.eval_shape`` of the FL state without
-building the model. Then the large-N federation runs of
-``chip_smoke.py``'s ``federation_large_n`` phase (``LARGE_N_RUNS``: the
-text model at N = 125 under adaptive group sizing on each transport, and
-clustered placement at N = 64, 20 iterations): the ledger by source,
+building the model. Then the large-N federation runs of the card
+gate's ``federation_large_n`` phase (``LARGE_N_RUNS``: the text model at
+N = 125 under adaptive group sizing on each transport, and clustered
+placement at N = 64, 20 iterations): the ledger by source,
 ``sim_seconds``, ``regroup_log`` and ``placement_log`` at seed 0 and
 the accuracy at iteration 20 for seeds 0-2; the full-width zamba2-2.7b
 and xlstm-350m trainer ledgers (``TRAIN_RECURRENT``, 4 peers, 6 steps);
@@ -42,7 +43,7 @@ depend only on the seed and the iteration). Last, the comm-total line
 of each rank of the trainer's two-rank socket world
 (``TRAIN_CLI_BASE`` plus ``--transport socket --peer-hosts BOOK --rank
 R``, two processes on a loopback book). Wall-clock seconds print as
-``comm_s=<wall>`` (``chip_smoke.wall_masked``). Needs jax; takes
+``comm_s=<wall>`` (``chipsmoke.refs.wall_masked``). Needs jax; takes
 several minutes.
 """
 from __future__ import annotations
@@ -61,9 +62,9 @@ ROOT = Path(__file__).resolve().parent.parent
 SMOKE = dict(peers=8, iters=6, eval_every=3, local_batches=1)
 FIGS = ("fig1_perf_gap", "fig2_mkd", "fig3_churn", "fig4_dp", "fig5_parity")
 FIGS_EXT = ("fig8_noniid", "fig11_approx_agg")
-#: the archs of the LM trainer's CLI cases (chip_smoke.TRAIN_CLI_CASES)
+#: the archs of the LM trainer's CLI cases (chipsmoke.refs.TRAIN_CLI_CASES)
 TRAIN_CLI_ARCHS = ("starcoder2-3b", "musicgen-medium")
-#: the chip's full-width run: chip_smoke.py's train phase (TRAIN_ARGS)
+#: the chip's full-width run: chipsmoke's train phase (TRAIN_ARGS)
 TRAIN_CHIP = dict(arch="musicgen-medium", peers=4, steps=6)
 
 
@@ -135,14 +136,14 @@ def figures_ext_rows() -> None:
 def comm_line(out: str) -> str:
     """The ``[train] comm total=...`` line of a trainer's output, its
     wall-clock seconds masked."""
-    from chip_smoke import wall_masked
+    from chipsmoke.refs import wall_masked
 
     return wall_masked(next(ln for ln in out.splitlines()
                             if ln.startswith("[train] comm total=")))
 
 
 def train_cli_lines() -> None:
-    from chip_smoke import TRAIN_CLI_BASE, TRAIN_CLI_CASES
+    from chipsmoke.refs import TRAIN_CLI_BASE, TRAIN_CLI_CASES
     from repro.launch import train
 
     lines = {}
@@ -191,7 +192,7 @@ def train_chip_bytes() -> None:
 
 
 def train_recurrent_bytes() -> None:
-    from chip_smoke import TRAIN_RECURRENT
+    from chipsmoke.refs import TRAIN_RECURRENT
 
     for arch in TRAIN_RECURRENT:
         print(json.dumps({"train_recurrent": _train_ledger(arch, 4, 6)}),
@@ -199,7 +200,7 @@ def train_recurrent_bytes() -> None:
 
 
 def large_n_runs(iterations: int = 20) -> None:
-    from chip_smoke import LARGE_N_RUNS
+    from chipsmoke.refs import LARGE_N_RUNS
     from repro.core.federation import Federation, FederationConfig
 
     for name, kw in LARGE_N_RUNS.items():
@@ -220,8 +221,8 @@ def large_n_runs(iterations: int = 20) -> None:
 
 
 def train_cli_large_n_lines() -> None:
-    from chip_smoke import (TRAIN_CLI_LARGE_N, TRAIN_CLI_LARGE_N_BASE,
-                            TRAIN_CLI_LARGE_N_SCHEDULE)
+    from chipsmoke.refs import (TRAIN_CLI_LARGE_N, TRAIN_CLI_LARGE_N_BASE,
+                                TRAIN_CLI_LARGE_N_SCHEDULE)
     from repro.core import adaptive
     from repro.launch import train
 
@@ -244,7 +245,7 @@ def train_cli_large_n_lines() -> None:
 
 
 def socket_runs(iterations: int = 20) -> None:
-    from chip_smoke import SOCKET_LOSSY
+    from chipsmoke.refs import SOCKET_LOSSY
     from repro.core.federation import Federation, FederationConfig
 
     from repro_torch.quickstart import quickstart_config
@@ -277,7 +278,7 @@ def train_cli_rank_lines(arch: str = "starcoder2-3b") -> None:
     import subprocess
     import tempfile
 
-    from chip_smoke import TRAIN_CLI_BASE
+    from chipsmoke.refs import TRAIN_CLI_BASE
     from repro.runtime.socket_transport import AddressBook
 
     with tempfile.TemporaryDirectory() as tmp:
